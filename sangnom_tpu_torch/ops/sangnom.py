@@ -1,0 +1,262 @@
+"""Frame orchestration: field selection, plane dispatch, assembly, batching.
+
+The functional equivalent of the reference's `GetFrame` (reference
+src/SangNom2.cpp:332-397): pick the kept field per `order`, copy it through,
+interpolate the missing lines, duplicate the one uninterpolatable boundary
+line, honor the `luma`/`chroma` plane masks and `dh` height doubling, as a
+clip -> clip transform batched over frames.
+
+Backend dispatch (the analogue of the reference's opt member-function
+selection, src/SangNom2.cpp:312-329):
+  opt = -1  auto: the CUDA kernel for CUDA tensors, the plain path otherwise
+  opt =  0  the plain PyTorch path (the parity target, like the reference's C)
+  opt =  1  the CUDA kernel; tensors on any other device are refused
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Union
+
+import numpy as np
+import torch
+
+from sangnom_tpu_torch.core.clip import Clip, where_storage
+from sangnom_tpu_torch.core.formats import VideoFormat
+from sangnom_tpu_torch.core.geometry import (
+    aaf_as_pixel,
+    buffer_stride_elems,
+    scaled_aa_thresholds,
+)
+from sangnom_tpu_torch.ops import reference as ref_backend
+from sangnom_tpu_torch.ops.primitives import KernelSpec
+from sangnom_tpu_torch.utils.logging import log_dispatch
+from sangnom_tpu_torch.utils.profiling import stage_scope
+
+Offset = Union[int, torch.Tensor]
+
+
+def _pick_backend(opt: int, device: torch.device) -> Callable:
+    """The batched interpolation function for the requested backend."""
+    if opt == 0:
+        return ref_backend.interpolate_field_batch
+    from sangnom_tpu_torch.ops import deint_kernel
+
+    if device.type == "cuda":
+        return deint_kernel.interpolate_field_batch
+    if opt == 1:
+        from sangnom_tpu_torch.api import SangNomError
+
+        raise SangNomError("SangNom2: opt=1 requires a CUDA backend.")
+    return ref_backend.interpolate_field_batch
+
+
+def deinterlace_plane_batch(
+    src: torch.Tensor,
+    offsets: Offset,
+    dh: bool,
+    aaf,
+    spec: KernelSpec,
+    stride: int,
+    interp_fn: Callable,
+    interlaced_tff: bool | None = None,
+) -> torch.Tensor:
+    """One plane, all frames: [N, h_src, w] -> [N, h_out, w].
+
+    The per-plane body of GetFrame (reference src/SangNom2.cpp:361-393):
+    kept-field copy, boundary-line duplication, interpolation.  ``offsets``
+    is an int (orders 1/2) or a per-frame [N] int32 tensor (order 0).
+
+    ``interlaced_tff`` not None (requires dh): ``src`` is an interlaced
+    [N/2, h, w] plane whose fields are the dh sources (the bob pipeline);
+    the CUDA kernel reads the fields in place, other paths split here.
+    """
+    if interlaced_tff is not None:
+        if not dh:
+            raise ValueError("interlaced input requires dh=True")
+        h_src = src.shape[1] // 2
+    else:
+        h_src = src.shape[1]
+    bufH = (2 * h_src if dh else h_src) // 2
+
+    if dh:
+        kept = src  # dh: the whole source is the kept field
+    elif isinstance(offsets, int):
+        kept = src[:, offsets::2].contiguous()
+    else:
+        kept = where_storage(
+            (offsets == 0)[:, None, None], src[:, 0::2], src[:, 1::2]
+        )
+
+    # The CUDA backend emits the complete woven plane (kept rows,
+    # interpolated rows and the boundary duplicate) from the kernel.
+    fused_weave = getattr(interp_fn, "fused_weave", None)
+    if fused_weave is not None and bufH >= 2:
+        with stage_scope("interpolate+weave"):
+            return fused_weave(kept, offsets, aaf, spec, stride,
+                               interlaced_tff=interlaced_tff)
+    if interlaced_tff is not None:
+        from sangnom_tpu_torch.core.fields import _split_plane
+
+        kept = _split_plane(src, interlaced_tff)
+    with stage_scope("interpolate"):
+        interp = interp_fn(kept, aaf, spec, stride)
+    return weave_assemble(kept, interp, offsets)
+
+
+def weave_assemble(
+    kept: torch.Tensor, interp: torch.Tensor, offsets: Offset
+) -> torch.Tensor:
+    """Interleave kept [N, bufH, w] and interpolated [N, bufH-1, w] rows per
+    ``offsets``, with the boundary missing line duplicated (reference
+    src/SangNom2.cpp:379-391): offset 0 -> bottom missing line := last kept
+    line; offset 1 -> top missing line := first kept line."""
+    N, bufH, w = kept.shape
+
+    def weave(top: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
+        return torch.stack([top, bottom], dim=2).reshape(N, 2 * bufH, w)
+
+    if isinstance(offsets, int):
+        if offsets == 0:
+            return weave(kept, torch.cat([interp, kept[:, -1:]], dim=1))
+        return weave(torch.cat([kept[:, :1], interp], dim=1), kept)
+    is0 = (offsets == 0)[:, None, None]
+    top = where_storage(is0, kept, torch.cat([kept[:, :1], interp], dim=1))
+    bottom = where_storage(
+        is0, torch.cat([interp, kept[:, -1:]], dim=1), kept
+    )
+    return weave(top, bottom)
+
+
+def field_offsets(order: int, parity, device: torch.device) -> Offset:
+    """Per-frame kept-field offset (reference src/SangNom2.cpp:336-341):
+    order=0 consults the per-frame host parity (GetParity), 1 keeps the
+    top field, 2 the bottom one."""
+    if order == 1:
+        return 0
+    if order == 2:
+        return 1
+    offs = np.where(np.asarray(parity, dtype=bool), 0, 1).astype(np.int32)
+    return torch.from_numpy(offs).to(device)
+
+
+def field_offset_py(order: int, frame_parity: bool) -> int:
+    """Scalar `field_offsets` for one frame (the native-oracle wrapper)."""
+    if order == 0:
+        return 0 if frame_parity else 1
+    return 0 if order == 1 else 1
+
+
+def sangnom2_impl(
+    planes,
+    parity,
+    fmt: VideoFormat,
+    order: int,
+    aa: int,
+    aac: int,
+    dh: bool,
+    luma: bool,
+    chroma: bool,
+    opt: int,
+    numerics: str = "c",
+    interlaced_tff: bool | None = None,
+):
+    """The whole-frame-batch transform over plane tensors.
+
+    ``parity``: host bool array, read only for order=0.  ``numerics``: "c"
+    (the parity target) or "sse2" (the reference's second numeric contract,
+    see ops.primitives.KernelSpec)."""
+    device = planes[0].device
+    interp_fn = _pick_backend(opt, device)
+    spec = KernelSpec.from_format(fmt, sse2=(numerics == "sse2"))
+    log_dispatch(
+        fmt=fmt.name, backend=interp_fn.__module__, acc_dtype=spec.acc_dtype,
+        order=order, aa=aa, aac=aac, dh=dh, luma=luma, chroma=chroma, opt=opt,
+        frames=planes[0].shape[0], height=planes[0].shape[1],
+        width=planes[0].shape[2], device=device,
+    )
+    aafs = scaled_aa_thresholds(aa, aac, fmt)
+    stride = buffer_stride_elems(planes[0].shape[2], fmt.component_size)
+    process = [luma, chroma, chroma]
+    offsets = field_offsets(order, parity, device)
+
+    out: dict[int, torch.Tensor] = {}
+    chroma_planes = [
+        i for i in (1, 2)
+        if i < len(planes) and (dh or process[i])
+    ]
+    if len(chroma_planes) == 2 and planes[1].shape == planes[2].shape:
+        # U and V share geometry, threshold and offsets: one batched launch
+        uv = torch.cat([planes[1], planes[2]], dim=0)
+        offs2 = offsets if isinstance(offsets, int) else offsets.repeat(2)
+        # output frames per plane, doubled for interlaced (bob) input
+        n = planes[1].shape[0] * (1 if interlaced_tff is None else 2)
+        res = deinterlace_plane_batch(
+            uv, offs2, dh=dh, aaf=aaf_as_pixel(aafs[1], fmt), spec=spec,
+            stride=stride, interp_fn=interp_fn, interlaced_tff=interlaced_tff,
+        )
+        out[1], out[2] = res[:n], res[n:]
+
+    for i, p in enumerate(planes):
+        if i in out:
+            continue
+        if i >= 3:
+            # Alpha: passthrough, line-doubled under dh (the reference caps
+            # at 3 planes and leaves dst alpha uninitialized,
+            # src/SangNom2.cpp:347).
+            n, h, w = p.shape
+            out[i] = torch.stack([p, p], dim=2).reshape(n, 2 * h, w) if dh else p
+            continue
+        if not dh and not process[i]:
+            # Unprocessed plane: verbatim copy (reference
+            # src/SangNom2.cpp:369-374); dh forces every plane (361-366).
+            out[i] = p
+            continue
+        out[i] = deinterlace_plane_batch(
+            p, offsets, dh=dh, aaf=aaf_as_pixel(aafs[i], fmt), spec=spec,
+            stride=stride, interp_fn=interp_fn, interlaced_tff=interlaced_tff,
+        )
+    return tuple(out[i] for i in range(len(planes)))
+
+
+def sangnom2_op(
+    clip: Clip,
+    order: int = 1,
+    aa: int = 48,
+    aac: int = 0,
+    dh: bool = False,
+    luma: bool = True,
+    chroma: bool = True,
+    opt: int = -1,
+    numerics: str = "c",
+) -> Clip:
+    """The filter op; parameters are validated by the API layer
+    (sangnom_tpu_torch.api)."""
+    if order == 0:
+        planes = _order0_static_split(
+            clip, clip.parity_array(), aa, aac, dh, luma, chroma, opt,
+            numerics,
+        )
+    else:
+        planes = sangnom2_impl(
+            clip.planes, None, clip.format, order, aa, aac, dh, luma, chroma,
+            opt, numerics=numerics,
+        )
+    return clip.with_planes(planes)
+
+
+def _order0_static_split(clip, parity, aa, aac, dh, luma, chroma, opt,
+                         numerics):
+    """order=0 with host parity: a UNIFORM batch collapses to order 1 or 2
+    (static offsets); a mixed batch (bob's alternation) passes per-frame
+    offsets, which the CUDA kernel reads as data."""
+    offs = np.where(parity, 0, 1)
+    if (offs == offs[0]).all():
+        order_s = 1 if offs[0] == 0 else 2
+        return sangnom2_impl(
+            clip.planes, None, clip.format, order_s, aa, aac, dh, luma,
+            chroma, opt, numerics=numerics,
+        )
+    return sangnom2_impl(
+        clip.planes, parity, clip.format, 0, aa, aac, dh, luma, chroma, opt,
+        numerics=numerics,
+    )
