@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernel from csrc/, checks it bit for bit against its plain
-PyTorch version on the card, drives the main path at full 1080 size (the
-1080i YUV420P8 bob, 60 interlaced frames -> 120, and the single-rate
-``sangnom2(order=1, dh=True)`` on 120 fields of 1920x540), checks the output
-against the plain path and the native oracle, and times kernel and plain
-version with CUDA events.  Each phase prints one line; any failure raises,
-so the script exits nonzero and never prints the final ``"ok"`` line.
-Imports nothing of JAX.
+Builds the CUDA kernels from csrc/ (one nvcc per source, in parallel) and
+checks each bit for bit against its plain PyTorch version on the card.
+Drives the main path at full 1080 size: the 1080i YUV420P8 bob (60
+interlaced frames -> 120) and the single-rate ``sangnom2(order=1, dh=True)``
+on 120 fields of 1920x540.  Then the pool_compat path: the 1080i bob with
+``pool_compat=True`` (16 interlaced frames -> 32) and 30 frames of 720x480
+YUV420P8, through each pool kernel (K3, and the K6 / K7 options).  Checks
+the outputs against the plain path and the native oracle, and times kernels
+and plain versions with CUDA events.  Each phase prints one line; any
+failure raises, so the script exits nonzero and never prints the final
+``"ok"`` line.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +31,23 @@ N_IN = 60  # interlaced input frames of the bob -> 120 output frames
 B = 120  # fields of the single-rate dh call
 REPLACES = "sangnom_tpu/ops/pallas_kernel.py:463"
 SOURCE = "sangnom_tpu_torch/csrc/deint.cu"
+POOL_SOURCE = "sangnom_tpu_torch/csrc/pool.cu"
+N_POOL = 16  # interlaced 1080 frames of the pool_compat bob -> 32 frames
+N_SD = 30  # 720x480 frames of the pool_compat single-rate calls
+N_720 = 16  # 1280x720 frames of the pool_compat timing between those two sizes
+DEVICE = "cuda"
+
+# The card's peaks for the bound: HBM bytes/s (H100 SXM data sheet) and
+# int32 ALU operations/s (64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost,
+# Hopper white paper).
+PEAK_BYTES_S = 3.35e12
+PEAK_INT32_S = 64 * 132 * 1.98e9
+# int32 operations the algorithm needs, per column (reference
+# src/SangNom2.cpp:74-273): prepare of one kept pair (4 predictors x 6 + 9
+# absolute differences x 2), smoothing of one row of 9 maps (9 x (2
+# vertical + 6 box adds + 2 writeback)), finalize of one pixel (8 min + 16
+# compare/select + 3 threshold + 4 average).
+OPS_PREPARE, OPS_SMOOTH, OPS_FINALIZE = 42, 90, 31
 
 
 def log(*a):
@@ -56,6 +76,48 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms the card could take, what binds it) for int32 work."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_INT32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def deint_work(n_fields: int, bufH: int, w: int, S: int, elem: int = 1):
+    """(bytes, ops) of one woven deint launch: kept rows in, woven plane
+    out; every pair prepared, every row of S columns smoothed, every missing
+    pixel finalized."""
+    nbytes = n_fields * bufH * w * elem * 3  # read bufH rows, write 2*bufH
+    ops = n_fields * (bufH - 1) * (w * (OPS_PREPARE + OPS_FINALIZE) + S * OPS_SMOOTH)
+    return nbytes, ops
+
+
+def pool_smooth_work(P: int, S: int):
+    """(bytes, ops) of one pool smoothing pass: the pool read, rows 1..P-1
+    written, 9 maps x S columns x P-1 rows smoothed."""
+    return 9 * (2 * P) * S * 4, (P - 1) * S * OPS_SMOOTH
+
+
+def pool_fused_work(P: int, S: int, bufH_p: int, w: int, elem: int = 1):
+    """(bytes, ops) of one fused pool plane pass.  Bytes: body rows 1..P-1
+    written; the old body read only where no kept pair prepares it (rows
+    beyond R = bufH_p-1, columns from w); rows 0 and P read; the kept plane
+    read and the interpolated rows written.  Ops: the smoothing plus the
+    prepare and finalize of the R kept pairs."""
+    R = bufH_p - 1
+    body = (P - 1) * S
+    nbytes = 9 * 4 * (body + (body - R * w) + 2 * S) + (2 * bufH_p - 1) * w * elem
+    ops = body * OPS_SMOOTH + R * w * (OPS_PREPARE + OPS_FINALIZE)
+    return nbytes, ops
+
+
+def _rand_plane(rng, shape, fmt):
+    """Full-range samples, out-of-nominal codes included for >8-bit formats."""
+    if fmt.is_float:
+        return (rng.random(shape, dtype=np.float32) * 1.5 - 0.25).astype(np.float32)
+    top = min(((1 << fmt.bits) - 1) * 2, (1 << (8 * fmt.component_size)) - 1)
+    return rng.integers(0, top + 1, size=shape).astype(fmt.np_dtype)
+
+
 def phase_kernel_matrix(dk, get_format, KernelSpec, details):
     """Kernel vs plain on CUDA tensors over formats, numerics, offsets,
     interlaced input and widths; bit-equal required."""
@@ -77,12 +139,7 @@ def phase_kernel_matrix(dk, get_format, KernelSpec, details):
             for tff in (None, True, False):
                 n_fields = n if tff is None else 2 * n
                 shape = (n, bufH, w) if tff is None else (n, 2 * bufH, w)
-                if fmt.is_float:
-                    host = (rng.random(shape, dtype=np.float32) * 1.5 - 0.25)
-                else:
-                    top = min(((1 << fmt.bits) - 1) * 2, (1 << (8 * fmt.component_size)) - 1)
-                    host = rng.integers(0, top + 1, size=shape).astype(fmt.np_dtype)
-                src = torch.from_numpy(np.ascontiguousarray(host)).cuda()
+                src = torch.from_numpy(_rand_plane(rng, shape, fmt)).cuda()
                 pf = torch.from_numpy(rng.integers(0, 2, n_fields).astype(np.int32)).cuda()
                 for off in (0, 1, pf):
                     got = dk.deinterlace_field_batch_fused(src, off, aaf, spec, stride, tff)
@@ -104,6 +161,316 @@ def phase_kernel_matrix(dk, get_format, KernelSpec, details):
                     cases += 1
     details["matrix_cases"] = cases
     return cases
+
+
+def _on_split(plane_pass, kept, pool, aaf, spec):
+    """A split-carry plane pass on a pool: (rows, the pool after it)."""
+    from sangnom_tpu_torch.ops import pool_carry as pc
+
+    carry = pc._pool_split(pool)
+    out = plane_pass(kept, carry, aaf, spec)
+    return out, pc._pool_join(carry)
+
+
+def phase_pool_matrix(get_format, KernelSpec, details):
+    """K3, K6 and K7 vs their plain twins on CUDA tensors: formats and
+    numerics x pool strides 64/736/1920 x plane shapes (luma covering the
+    pool, unaligned luma, chroma with R < P-1 and w < S, a degenerate
+    plane), on pools holding stale content from two plain passes; the
+    interpolated rows and the whole pool bit-equal."""
+    from sangnom_tpu_torch.core.geometry import aaf_as_pixel, scaled_aa_thresholds
+    from sangnom_tpu_torch.ops import pool_carry as pc
+    from sangnom_tpu_torch.ops import pool_kernel as pk
+
+    rng = np.random.default_rng(13)
+    formats = [("GRAY8", "c"), ("GRAY8", "sse2"), ("GRAY16", "c"),
+               ("GRAY16", "sse2"), ("YUV420P10", "c"), ("YUV420P10", "sse2"),
+               ("GRAYS", "c")]
+    P = 24
+    cases = 0
+    for fmt_name, numerics in formats:
+        fmt = get_format(fmt_name)
+        spec = KernelSpec.from_format(fmt, sse2=numerics == "sse2")
+        aaf_y, aaf_c = (aaf_as_pixel(scaled_aa_thresholds(a, 0, fmt)[0], fmt)
+                        for a in (48, 40))
+        for S in (64, 736, 1920):
+            pool = torch.zeros((9, P + 1, S), dtype=spec.acc_dtype, device=DEVICE)
+            for rows, w in ((P, S - 5), (P // 2, S // 2 - 3)):  # stale content
+                kept = torch.from_numpy(_rand_plane(rng, (rows, w), fmt)).to(DEVICE)
+                pc.interp_field_pool(kept, pool, aaf_y, spec)
+            if not bool(pool[:, 1:P].any()):
+                raise AssertionError(f"stale pool is zero: {fmt_name} S={S}")
+            for rows, w in ((P, S), (P, S - 16), (P // 2 - 1, S // 2 - 8), (1, S // 2)):
+                kept = torch.from_numpy(_rand_plane(rng, (rows, w), fmt)).to(DEVICE)
+                aaf = aaf_y if rows == P else aaf_c
+                want_pool = pool.clone()
+                want = pc.interp_field_pool(kept, want_pool, aaf, spec)
+                arms = (
+                    ("K3", lambda p: (pc.interp_field_pool_k3(kept, p, aaf, spec), p)),
+                    ("K6", lambda p: _on_split(pc.interp_field_pool_split3, kept, p, aaf, spec)),
+                    ("K7", lambda p: _on_split(pc.interp_field_pool_fused, kept, p, aaf, spec)),
+                )
+                for name, run in arms:
+                    before = dict(pk.LAUNCHES)
+                    got, got_pool = run(pool.clone())
+                    torch.cuda.synchronize()
+                    if pk.LAUNCHES == before:
+                        raise AssertionError(f"{name} did not launch")
+                    if not (torch.equal(got, want) and torch.equal(got_pool, want_pool)):
+                        raise AssertionError(
+                            f"{name} != plain: {fmt_name} {numerics} S={S} kept "
+                            f"{rows}x{w}: rows max_abs {max_abs(got, want)}, pool "
+                            f"max_abs {max_abs(got_pool, want_pool)}")
+                    cases += 1
+                # K3 alone on the prepared pool, against its twin
+                a, b = want_pool.clone(), want_pool.clone()
+                pk.smooth_pool_(a, spec)
+                pk.smooth_pool_plain_(b, spec)
+                torch.cuda.synchronize()
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K3 alone != twin: {fmt_name} {numerics} S={S}")
+                cases += 1
+                pool = want_pool
+    details["pool_matrix_cases"] = cases
+    return cases
+
+
+def pool_inputs():
+    """The pool_compat inputs, seed 8: 16 interlaced 1080 YUV420P8 frames,
+    then 30 frames of 720x480 YUV420P8."""
+    rng = np.random.default_rng(8)
+    hd = [rng.integers(0, 256, (N_POOL, h, w)).astype(np.uint8)
+          for h, w in ((1080, 1920), (540, 960), (540, 960))]
+    sd = [rng.integers(0, 256, (N_SD, h, w)).astype(np.uint8)
+          for h, w in ((480, 720), (240, 360), (240, 360))]
+    return hd, sd
+
+
+def phase_pool_main_path(fmt, clip_hd, clip_sd, details):
+    """The pool_compat path through the entry points, once per kernel arm
+    (K3 default, K6, K7), each with the launch counts set to 0 just before
+    and read just after; outputs and final pools bit-equal to opt=0,
+    chunked streams equal to the whole clip, the first 2 frames equal to
+    the native oracle with a carried pool.  Returns (launches per kernel,
+    the K3 bob's final pool)."""
+    from sangnom_tpu_torch import Clip, bob, sangnom2
+    from sangnom_tpu_torch.core.fields import double_weave, separate_fields
+    from sangnom_tpu_torch.ops import pool_carry as pc
+    from sangnom_tpu_torch.ops import pool_kernel as pk
+    from sangnom_tpu_torch.ops.sangnom import sangnom2_pool_stream as stream
+    from sangnom_tpu_torch.oracle import sangnom2_clip_oracle
+
+    woven = double_weave(separate_fields(clip_hd))
+    calls = {  # name -> (main-path call, the same as a stream: clip, kwargs)
+        "bob": (lambda: bob(clip_hd, pool_compat=True), woven, dict(order=0)),
+        "sd": (lambda: sangnom2(clip_sd, order=1, pool_compat=True), clip_sd,
+               dict(order=1)),
+        "sd_noluma": (lambda: sangnom2(clip_sd, order=1, luma=False, pool_compat=True),
+                      clip_sd, dict(order=1, luma=False)),
+    }
+    n_hd, n_sd = clip_hd.num_frames, clip_sd.num_frames
+    passes = 2 * n_hd * 3 + n_sd * 3 + n_sd * 2  # plane passes of the three calls
+    ref = {}
+    for name, (_, c, kw) in calls.items():
+        ref[name] = stream(c, None, opt=0, **kw)
+    launches, outs = {}, {}
+    for arm, key, flags in (("K3", "smooth", (False, False)),
+                            ("K6", "split3", (True, False)),
+                            ("K7", "fused", (False, True))):
+        pc.POOL_SPLIT3, pc.POOL_FUSED = flags
+        try:
+            torch.cuda.synchronize()
+            pk.reset_launches()
+            outs = {name: call() for name, (call, _, _) in calls.items()}
+            torch.cuda.synchronize()
+            launches[key] = pk.LAUNCHES[key]
+            for name, (_, c, kw) in calls.items():
+                out, pool = stream(c, None, **kw)
+                want, want_pool = ref[name]
+                for i, (g, s_, r) in enumerate(zip(outs[name].planes, out.planes, want.planes)):
+                    if not (torch.equal(g, r) and torch.equal(s_, r)):
+                        raise AssertionError(f"{arm} {name} plane {i} != opt=0, "
+                                             f"max_abs {max_abs(g, r)}")
+                if not torch.equal(pool, want_pool):
+                    raise AssertionError(f"{arm} {name}: final pool != opt=0")
+        finally:
+            pc.POOL_SPLIT3 = pc.POOL_FUSED = False
+        if launches[key] != passes:
+            raise AssertionError(f"{arm}: {launches[key]} launches, {passes} passes")
+    # chunked streams == the whole clip (K3)
+    for name, (_, c, kw) in calls.items():
+        k = c.num_frames // 2 - 1
+        a, pool = stream(c[0:k], None, **kw)
+        b, pool = stream(c[k:], pool, **kw)
+        want, want_pool = ref[name]
+        joined = Clip.concat(a, b)
+        if not all(torch.equal(g, r) for g, r in zip(joined.planes, want.planes)):
+            raise AssertionError(f"{name}: chunked stream != whole clip")
+        if not torch.equal(pool, want_pool):
+            raise AssertionError(f"{name}: chunked stream's pool != whole clip's")
+    # the first 2 frames against the native oracle with a carried pool
+    for name, (_, c, kw) in calls.items():
+        frames = [[p[n].cpu().numpy() for p in c.planes] for n in range(2)]
+        want = sangnom2_clip_oracle(frames, fmt, parities=list(c.parity_array()[:2]),
+                                    pool_compat=True, **kw)
+        got = outs[name]
+        for n in range(2):
+            for i in range(3):
+                if not np.array_equal(got.planes[i][n].cpu().numpy(), want[n][i]):
+                    raise AssertionError(f"{name} frame {n} plane {i} != native oracle")
+    got = [tuple(p.shape) for p in outs["bob"].planes]
+    if got != [(2 * n, h, w) for n, h, w in (p.shape for p in clip_hd.planes)]:
+        raise AssertionError(f"bob shapes {got}")
+    details["pool_main_path_launches"] = launches
+    return launches, ref["bob"][1]
+
+
+def phase_pool_timing(fmt, clip_hd, clip_sd, hd_pool, card, details):
+    """ms per output frame of the pool_compat calls per kernel arm, in
+    turns, the arms' outputs equal (1080i bob, 720p and 720x480: where K3
+    and K7 cross over); ms per launch of each pool kernel and its twin at the 1080 luma
+    and chroma passes; the plain path on a 2-frame prefix."""
+    from sangnom_tpu_torch import Clip, bob, sangnom2
+    from sangnom_tpu_torch.core.geometry import aaf_as_pixel, scaled_aa_thresholds
+    from sangnom_tpu_torch.ops import pool_carry as pc
+    from sangnom_tpu_torch.ops import pool_kernel as pk
+    from sangnom_tpu_torch.ops.primitives import KernelSpec
+
+    arms = {"K3": (False, False), "K6": (True, False), "K7": (False, True)}
+    rng = np.random.default_rng(9)  # 720p, between the two checked sizes
+    clip_720 = Clip.from_numpy([rng.integers(0, 256, (N_720, h, w)).astype(np.uint8)
+                                for h, w in ((720, 1280), (360, 640), (360, 640))],
+                               fmt, device=DEVICE)
+    calls = {
+        "bob1080": (lambda: bob(clip_hd, pool_compat=True), 2 * clip_hd.num_frames),
+        "hd720": (lambda: sangnom2(clip_720, order=1, pool_compat=True), N_720),
+        "sd480": (lambda: sangnom2(clip_sd, order=1, pool_compat=True), clip_sd.num_frames),
+    }
+    e2e: dict = {}
+    first: dict = {}  # workload -> K3's output, which every arm must equal
+    try:
+        for rnd in (list(arms), list(arms)[::-1]):
+            for arm in rnd:
+                pc.POOL_SPLIT3, pc.POOL_FUSED = arms[arm]
+                for wl, (fn, frames) in calls.items():
+                    out = fn()  # warm-up
+                    want = first.setdefault(wl, out)
+                    if not all(torch.equal(g, r) for g, r in zip(out.planes, want.planes)):
+                        raise AssertionError(f"{wl}: arm {arm} != the first arm's output")
+                    e2e.setdefault(f"{wl}/{arm}", []).append(cuda_ms(fn, 2) / frames)
+    finally:
+        pc.POOL_SPLIT3 = pc.POOL_FUSED = False
+    del first
+    plain = {
+        "bob1080": cuda_ms(lambda: bob(clip_hd[0:1], pool_compat=True, opt=0), 1) / 2,
+        "sd480": cuda_ms(lambda: sangnom2(clip_sd[0:2], order=1, pool_compat=True,
+                                          opt=0), 1) / 2,
+    }
+    for k, ts in e2e.items():
+        log(f"[8 pool timing] {k}: {min(ts):.4f} ms/output frame -> "
+            f"{1e3 / min(ts):.1f} frames/s (windows {', '.join(f'{t:.4f}' for t in ts)}) | {card}")
+    for k, t in plain.items():
+        log(f"[8 pool timing] {k}/plain (opt=0, 2-frame prefix): {t:.3f} ms/output frame | {card}")
+    details["pool_e2e_ms_per_frame"] = e2e
+    details["pool_plain_ms_per_frame"] = plain
+
+    # each kernel alone at the 1080 passes, on the bob's stale final pool
+    spec = KernelSpec.from_format(fmt)
+    aafs = scaled_aa_thresholds(48, 0, fmt)
+    P, S = hd_pool.shape[1] - 1, hd_pool.shape[2]
+    field = clip_hd.planes
+    passes = {
+        "luma": (field[0][0, 0::2].contiguous(), aaf_as_pixel(aafs[0], fmt)),
+        "chroma": (field[1][0, 0::2].contiguous(), aaf_as_pixel(aafs[1], fmt)),
+    }
+    per: dict = {}
+    for pname, (kept, aaf) in passes.items():
+        bufH_p, w = kept.shape
+        prepared = hd_pool.clone()
+        pc._prepare(kept, prepared[:, 1:bufH_p, :w], spec)
+        carry = pc._pool_split(prepared)
+        kernels = {
+            "K3": (lambda p=prepared.clone(): pk.smooth_pool_(p, spec),
+                   lambda p=prepared.clone(): pk.smooth_pool_plain_(p, spec),
+                   lambda: _k3_err(pk, prepared, spec), pool_smooth_work(P, S)),
+            "K6": (lambda c=tuple(x.clone() for x in carry): pk.smooth_split3_(*c, spec),
+                   lambda c=tuple(x.clone() for x in carry): pk.smooth_split3_plain_(*c, spec),
+                   lambda: _k6_err(pk, carry, spec), pool_smooth_work(P, S)),
+            "K7": (lambda c=tuple(x.clone() for x in pc._pool_split(hd_pool)):
+                   pk.interp_fused(kept, *c, aaf, spec),
+                   lambda c=tuple(x.clone() for x in pc._pool_split(hd_pool)):
+                   pk.interp_fused_plain(kept, *c, aaf, spec),
+                   lambda: _k7_err(pk, pc, hd_pool, kept, aaf, spec),
+                   pool_fused_work(P, S, bufH_p, w)),
+        }
+        for kname, (kern, twin, err, work) in kernels.items():
+            kern()  # warm-up
+            k_ms = [cuda_ms(kern, 5) for _ in range(2)]
+            p_ms = cuda_ms(twin, 1)
+            b_ms, b_by = bound(*work)
+            per[f"{kname}/{pname}"] = dict(ms=min(k_ms), windows=k_ms, plain_ms=p_ms,
+                                           max_abs_err=err(), bound_ms=b_ms, bound_by=b_by)
+            log(f"[8 pool timing] {kname} at the 1080 {pname} pass (pool 9x{P + 1}x{S}, "
+                f"kept {bufH_p}x{w}): {min(k_ms):.4f} ms/launch (windows "
+                f"{', '.join(f'{t:.4f}' for t in k_ms)}), twin {p_ms:.3f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), {P - 1} serial row steps | {card}")
+    details["pool_kernel_ms"] = per
+    details["pool_profile"] = profile_call(lambda: bob(clip_hd, pool_compat=True),
+                                           min(e2e["bob1080/K3"]) * 2 * clip_hd.num_frames,
+                                           "bob1080/K3", card)
+    return per
+
+
+def profile_call(fn, wall_ms: float, what: str, card: str) -> dict:
+    """Device time of one call of ``fn`` by torch.profiler, against
+    ``wall_ms``, its time by CUDA events without the profiler: the device's
+    busy and idle share, and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # kernels only: the port's own named ranges (utils.profiling.stage_scope)
+    # also appear on the device timeline, spanning their kernels
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.key.startswith("sangnom/")]
+    busy = sum(r[2] for r in rows)
+    if not busy:
+        log(f"[8 pool profile] {what}: the profiler traced no device time; "
+            f"busy share not measured")
+        return {}
+    rows.sort(key=lambda r: -r[2])
+    top = [(k[:60], n, round(ms, 4)) for k, n, ms in rows[:6]]
+    log(f"[8 pool profile] {what}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+        f"per call (idle share {1 - busy / wall_ms:.3f}), {sum(r[1] for r in rows)} "
+        f"kernel launches; top (name, launches, ms): {top} | {card}")
+    return {"busy_ms": busy, "wall_ms": wall_ms, "launches": sum(r[1] for r in rows),
+            "top": top}
+
+
+def _k3_err(pk, pool, spec) -> float:
+    a, b = pool.clone(), pool.clone()
+    pk.smooth_pool_(a, spec)
+    pk.smooth_pool_plain_(b, spec)
+    return max_abs(a, b)
+
+
+def _k6_err(pk, carry, spec) -> float:
+    a, b = (tuple(x.clone() for x in carry) for _ in range(2))
+    pk.smooth_split3_(*a, spec)
+    pk.smooth_split3_plain_(*b, spec)
+    return max(max_abs(x, y) for x, y in zip(a, b))
+
+
+def _k7_err(pk, pc, pool, kept, aaf, spec) -> float:
+    a, b = pc._pool_split(pool), pc._pool_split(pool)
+    ra = pk.interp_fused(kept, *a, aaf, spec)
+    rb = pk.interp_fused_plain(kept, *b, aaf, spec)
+    return max([max_abs(ra, rb)] + [max_abs(x, y) for x, y in zip(a, b)])
 
 
 def main_path_inputs():
@@ -137,7 +504,7 @@ def main() -> int:
     from sangnom_tpu_torch import Clip, bob, get_format, sangnom2
     from sangnom_tpu_torch.core.fields import double_weave, separate_fields
     from sangnom_tpu_torch.core.geometry import (
-        aaf_as_pixel, buffer_stride_elems, scaled_aa_thresholds)
+        aaf_as_pixel, buffer_stride_elems, scaled_aa_thresholds, width_tiers)
     from sangnom_tpu_torch.ops import deint_kernel as dk
     from sangnom_tpu_torch.ops.primitives import KernelSpec
     from sangnom_tpu_torch.oracle import sangnom2_frame_oracle
@@ -146,7 +513,8 @@ def main() -> int:
     t0 = time.perf_counter()
     compile_s = dk.build()
     dk._load()
-    log(f"[2 build] kernel library built from {SOURCE} in {compile_s:.1f} s "
+    log(f"[2 build] kernel library built from {SOURCE} and {POOL_SOURCE} "
+        f"(one nvcc each, in parallel) in {compile_s:.1f} s "
         f"(load {time.perf_counter() - t0:.1f} s)")
     details["build_s"] = compile_s
 
@@ -270,12 +638,46 @@ def main() -> int:
     nw_k = cuda_ms(lambda: dk.interpolate_field_batch(kept, aaf_as_pixel(aafs[0], fmt), spec, stride), 10)
     from sangnom_tpu_torch.ops.reference import interpolate_field_batch as plain_interp
     nw_p = cuda_ms(lambda: plain_interp(kept, aaf_as_pixel(aafs[0], fmt), spec, stride), 2)
+    nw_bound = bound(kept.shape[0] * (2 * kept.shape[1] - 1) * kept.shape[2],
+                     kept.shape[0] * (kept.shape[1] - 1) * kept.shape[2]
+                     * (OPS_PREPARE + OPS_FINALIZE + OPS_SMOOTH))
     log(f"[5 timing] no-weave mode (120x540x1920 luma): kernel {nw_k:.3f} ms, "
-        f"plain {nw_p:.3f} ms | {card}")
-    details["no_weave_ms"] = {"kernel": nw_k, "plain": nw_p}
+        f"plain {nw_p:.3f} ms, bound {nw_bound[0]:.4f} ms ({nw_bound[1]}) | {card}")
+    details["no_weave_ms"] = {"kernel": nw_k, "plain": nw_p, "bound": nw_bound}
 
-    log("[5 details] " + json.dumps(details))
-    log(json.dumps({"kernels": [{
+    # 6. the pool kernels vs their twins on the card
+    t0 = time.perf_counter()
+    cases = phase_pool_matrix(get_format, KernelSpec, details)
+    log(f"[6 pool kernels vs plain] {cases} cases bit-equal on the card, rows "
+        f"and whole pool (K3, K6, K7; u8/u16/10-bit/f32, c/sse2, strides "
+        f"64/736/1920, luma/unaligned/chroma/degenerate planes on stale "
+        f"pools; K3 alone) in {time.perf_counter() - t0:.1f} s")
+
+    # 7. the pool_compat main path, once per kernel arm
+    t0 = time.perf_counter()
+    del clip_dh, out_dh, out_bob
+    hd, sd = pool_inputs()
+    clip_hd = Clip.from_numpy(hd, fmt, device=DEVICE, tff=True)
+    clip_sd = Clip.from_numpy(sd, fmt, device=DEVICE)
+    pool_launches, hd_pool = phase_pool_main_path(fmt, clip_hd, clip_sd, details)
+    log(f"[7 pool main path] bob(pool_compat=True) {N_POOL}x1920x1080 -> "
+        f"{2 * N_POOL} frames, sangnom2(order=1, pool_compat=True) on {N_SD} "
+        f"frames 720x480 (stride 736) with luma on and off: launches per arm "
+        f"{pool_launches}; outputs and final pools bit-equal to opt=0, chunked "
+        f"streams equal to the whole clips, frames 0-1 equal to the native "
+        f"oracle, in {time.perf_counter() - t0:.1f} s")
+
+    # 8. pool timing
+    pool_ms = phase_pool_timing(fmt, clip_hd, clip_sd, hd_pool, card, details)
+
+    log("[details] " + json.dumps(details))
+    dk_bytes, dk_ops = 0, 0
+    for src, _, _, _ in launches_bob:
+        n_fields, bufH, w = 2 * src.shape[0], src.shape[1] // 2, src.shape[2]
+        b_, o_ = deint_work(n_fields, bufH, w, width_tiers(w, bufH, stride, spec)[2])
+        dk_bytes, dk_ops = dk_bytes + b_, dk_ops + o_
+    dk_bound, dk_by = bound(dk_bytes, dk_ops)
+    kernels = [{
         "name": "deint_kernel (K1 weave; K2 no-weave mode)",
         "route": "cuda",
         "source": SOURCE,
@@ -284,7 +686,28 @@ def main() -> int:
         "max_abs_err": err,
         "ms": min(k_ms),
         "plain_ms": min(p_ms),
-    }]}))
+        "bound_ms": dk_bound,
+        "bound_by": dk_by,
+        "library_ms": None,
+    }]
+    for key, name, replaces in (
+        ("K3", "pool_smooth_kernel (K3)", "sangnom_tpu/ops/pool_carry.py:63"),
+        ("K6", "pool_smooth_kernel, split3 entry (K6)", "sangnom_tpu/ops/pool_carry.py:268"),
+        ("K7", "pool_fused_kernel (K7)", "sangnom_tpu/ops/pool_carry.py:178"),
+    ):
+        m = pool_ms[f"{key}/luma"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": POOL_SOURCE,
+            "replaces": replaces,
+            "launches": pool_launches[{"K3": "smooth", "K6": "split3", "K7": "fused"}[key]],
+            "max_abs_err": max(m["max_abs_err"], pool_ms[f"{key}/chroma"]["max_abs_err"]),
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
+        })
+    if any(k["max_abs_err"] != 0.0 for k in kernels):
+        raise AssertionError(f"a kernel disagrees with its twin: {kernels}")
+    log(card)
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

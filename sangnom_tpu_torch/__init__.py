@@ -4,12 +4,14 @@ The PyTorch port of `sangnom_tpu`, with the same public surface: an
 edge-directed single-field deinterlacer / anti-aliaser (the SangNom2
 AviSynth plugin, Asd-g/AviSynth-SangNom2 v0.6.1).  Planes are torch tensors
 on an explicit device.  On an NVIDIA Hopper GPU the field interpolation runs
-in a hand-written CUDA kernel (``csrc/deint.cu``); on the CPU a plain
-PyTorch path computes the same bits.
+in a hand-written CUDA kernel (``csrc/deint.cu``), and the shared-pool mode
+(``pool_compat=True``) in ``csrc/pool.cu``; on the CPU a plain PyTorch path
+computes the same bits.
 
-    sangnom2(clip, order=1, aa=48, aac=0, threads=0, dh=False,
-             luma=True, chroma=True, opt=-1) -> Clip
-    sangnom(clip, order=1, aa=48, opt=-1) -> Clip          # legacy wrapper
+    sangnom2(clip, order=1, aa=48, aac=0, threads=0, dh=False, luma=True,
+             chroma=True, opt=-1, pool_compat=False, numerics="c") -> Clip
+    sangnom(clip, order=1, aa=48, opt=-1, pool_compat=False,
+            numerics="c") -> Clip                          # legacy wrapper
 """
 
 __version__ = "0.5.0"

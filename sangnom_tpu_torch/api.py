@@ -70,13 +70,6 @@ def _validate_numerics(name: str, numerics: str) -> None:
         )
 
 
-def _validate_pool_compat(name: str, pool_compat: bool) -> None:
-    if pool_compat:
-        raise SangNomError(
-            f"{name}: pool_compat is not yet ported to sangnom_tpu_torch."
-        )
-
-
 def sangnom2(
     clip: Clip,
     order: int = 1,
@@ -99,15 +92,16 @@ def sangnom2(
 
     ``numerics``: "c" (the reference's C-path contract, the parity target)
     or "sse2" (its SSE2 path, which diverges at integer extremes).
-    ``pool_compat=True`` is not ported yet and raises `SangNomError`.
+    ``pool_compat=True`` reproduces the reference's shared buffer pool
+    bit for bit (ops/pool_carry.py), at the cost of processing frames in
+    order; composable with ``numerics``.
     """
     del threads
     _validate("SangNom2", clip, order, aa, aac, opt)
     _validate_numerics("SangNom2", numerics)
-    _validate_pool_compat("SangNom2", pool_compat)
     return sangnom2_op(
         clip, order=order, aa=aa, aac=aac, dh=dh, luma=luma, chroma=chroma,
-        opt=opt, numerics=numerics,
+        opt=opt, pool_compat=pool_compat, numerics=numerics,
     )
 
 
@@ -121,10 +115,9 @@ def sangnom(clip: Clip, order: int = 1, aa: int = 48, opt: int = -1,
     """Legacy SangNom wrapper (the documented surface)."""
     _validate("SangNom", clip, order, aa, 0, opt)
     _validate_numerics("SangNom", numerics)
-    _validate_pool_compat("SangNom", pool_compat)
     new_order = _LEGACY_ORDER_REMAP[order] if order != 1 else 1
     return sangnom2_op(clip, order=new_order, aa=aa, aac=0, opt=opt,
-                       numerics=numerics)
+                       pool_compat=pool_compat, numerics=numerics)
 
 
 class SangNom2Filter:
@@ -145,7 +138,6 @@ class SangNom2Filter:
                  pool_compat: bool = False, numerics: str = "c"):
         _validate("SangNom2", None, order, aa, aac, opt)
         _validate_numerics("SangNom2", numerics)
-        _validate_pool_compat("SangNom2", pool_compat)
         del threads
         self.order, self.aa, self.aac = order, aa, aac
         self.dh, self.luma, self.chroma, self.opt = dh, luma, chroma, opt

@@ -7,10 +7,11 @@
 ``_interp_chunk``).  On a CPU tensor each wrapper runs its plain PyTorch
 version instead; on a CUDA tensor it launches the kernel or raises.
 
-The kernel library is compiled with nvcc for sm_90a at first use, from the
-sources in ``csrc/``, into ``sangnom_tpu_torch/_build/`` (rebuilt when a
-source is newer), and bound with ctypes.  ``LAUNCHES`` counts kernel
-launches, so a run can show that it went through the kernel.
+The kernel library (this kernel and the pool kernels of ``ops/pool_kernel``)
+is compiled with nvcc for sm_90a at first use, one nvcc per source in
+``csrc/``, all started together, into ``sangnom_tpu_torch/_build/`` (rebuilt
+when a source or header is newer), and bound with ctypes.  ``LAUNCHES``
+counts kernel launches, so a run can show that it went through the kernel.
 """
 
 from __future__ import annotations
@@ -33,11 +34,11 @@ from sangnom_tpu_torch.ops.sangnom import Offset, weave_assemble
 _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
-_LIB = _BUILD_DIR / "libsangnom_deint.so"
+_LIB = _BUILD_DIR / "libsangnom_cuda.so"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 ]
 
 # Kernel launches since import (or since the caller last reset it).
@@ -72,17 +73,35 @@ def build(verbose: bool = False) -> float:
     if _LIB.exists() and _LIB.stat().st_mtime >= newest and not verbose:
         return 0.0
     _BUILD_DIR.mkdir(exist_ok=True)
-    tmp = _LIB.with_name(f"{_LIB.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [_BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    tmp = _LIB.with_name(f"{_LIB.name}.{tag}")
+    ptxas = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, _LIB)  # atomic: a concurrent build never sees a partial file
+    try:
+        cmds = [[nvcc, *NVCC_FLAGS, *ptxas, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        for cmd, proc in zip(cmds, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{err}")
+            if verbose:
+                print(err, end="")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stderr}")
+        os.replace(tmp, _LIB)  # atomic: a concurrent build never sees a partial file
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     return time.perf_counter() - t0
 
 
@@ -114,7 +133,7 @@ def _load() -> ctypes.CDLL:
 def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.sno_error_string(err).decode()
-        raise RuntimeError(f"deint kernel: {what} failed: {msg} ({err})")
+        raise RuntimeError(f"{what} failed: {msg} ({err})")
 
 
 def _max_smem_bytes(lib: ctypes.CDLL, device: torch.device) -> int:
@@ -202,7 +221,7 @@ def _launch(src: torch.Tensor, out: torch.Tensor, spec: KernelSpec, aaf,
             n_fields, bufH, w, S, in_frame_stride, interlaced, int(weave),
             static_offset, float(aaf), threads, smem, stream,
         )
-    _check(lib, err, "launch")
+    _check(lib, err, "deint kernel launch")
     LAUNCHES += 1
 
 

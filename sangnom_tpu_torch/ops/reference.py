@@ -76,13 +76,17 @@ def _hbox7(line: torch.Tensor) -> torch.Tensor:
     return s
 
 
-def smooth_scan(raw: torch.Tensor, spec: KernelSpec) -> torch.Tensor:
+def smooth_scan(raw: torch.Tensor, spec: KernelSpec,
+                init: torch.Tensor | None = None) -> torch.Tensor:
     """The recursive 3x7 smoothing over buffer rows 1..bufH-1.
 
-    raw: [bufH+1, 9, ..., S] raw error maps, rows 0 and bufH zero.
+    raw: [bufH+1, 9, ..., S] raw error maps.  Rows 0 and bufH are the
+    buffer's boundary rows: zero under the zero-defined contract, carried
+    pool content in pool-compat mode, which passes ``init`` = row 0 as the
+    smoothed "row 0" seed (zero when None).
     Returns the smoothed rows [bufH-1, 9, ..., S]."""
     bufH = raw.shape[0] - 1
-    sm = torch.zeros_like(raw[0])  # smoothed "row 0"
+    sm = torch.zeros_like(raw[0]) if init is None else init
     out = []
     for b in range(1, bufH):
         line = sm + raw[b] + raw[b + 1]  # row b-1 already smoothed
@@ -125,7 +129,9 @@ def finalize_select_from_taps(taps, preds, bufs, aaf, spec: KernelSpec):
 def smooth_width(w: int, stride: int, spec: KernelSpec) -> int:
     """Columns the plain path smooths: the full stride for float; for integer
     formats the padding decays to exact zero within `decay_hops` rows, so the
-    scan stops at w + 3*hops + 6 (see core.geometry.creep_bound)."""
+    scan stops at w + 3*hops + 6 (see core.geometry.creep_bound).  Only for
+    zero-defined padding: the pool-compat pass (ops.pool_carry) smooths the
+    full stride, because stale pool columns are not zero."""
     if spec.is_float:
         return stride
     return min(stride, w + 3 * decay_hops(spec.mask) + 6)

@@ -227,10 +227,23 @@ def sangnom2_op(
     luma: bool = True,
     chroma: bool = True,
     opt: int = -1,
+    pool_compat: bool = False,
     numerics: str = "c",
 ) -> Clip:
     """The filter op; parameters are validated by the API layer
-    (sangnom_tpu_torch.api)."""
+    (sangnom_tpu_torch.api).
+
+    ``pool_compat=True`` reproduces the reference's shared buffer pool
+    (ops/pool_carry.py): frames run in order, the pool carried across planes
+    and frames."""
+    if pool_compat:
+        from sangnom_tpu_torch.ops.pool_carry import sangnom2_pool_impl
+
+        planes, _ = sangnom2_pool_impl(
+            clip.planes, clip.parity_array(), clip.format, order, aa, aac, dh,
+            luma, chroma, numerics=numerics, opt=opt,
+        )
+        return clip.with_planes(planes)
     if order == 0:
         planes = _order0_static_split(
             clip, clip.parity_array(), aa, aac, dh, luma, chroma, opt,
@@ -242,6 +255,38 @@ def sangnom2_op(
             opt, numerics=numerics,
         )
     return clip.with_planes(planes)
+
+
+def sangnom2_pool_stream(
+    clip: Clip,
+    pool_state: torch.Tensor | None,
+    order: int = 1,
+    aa: int = 48,
+    aac: int = 0,
+    dh: bool = False,
+    luma: bool = True,
+    chroma: bool = True,
+    numerics: str = "c",
+    opt: int = -1,
+):
+    """One chunk of a pool-compat stream: ``sangnom2(pool_compat=True)``
+    taking and returning the pool state [9, P+1, S], so a windowed caller
+    produces the same output as one whole-clip call.  ``pool_state=None``
+    starts a fresh stream; the caller's pool is never modified.  Returns
+    (out_clip, pool)."""
+    from sangnom_tpu_torch.api import _validate, _validate_numerics
+    from sangnom_tpu_torch.ops.pool_carry import sangnom2_pool_impl
+
+    _validate("SangNom2", clip, order, aa, aac, opt)
+    _validate_numerics("SangNom2", numerics)
+    pool0 = None
+    if pool_state is not None:
+        pool0 = pool_state.to(device=clip.device, copy=True)
+    planes, pool = sangnom2_pool_impl(
+        clip.planes, clip.parity_array(), clip.format, order, aa, aac, dh,
+        luma, chroma, pool0=pool0, numerics=numerics, opt=opt,
+    )
+    return clip.with_planes(planes), pool
 
 
 def _order0_static_split(clip, parity, aa, aac, dh, luma, chroma, opt,

@@ -2,8 +2,9 @@
 
 The five BASELINE.json configurations at small sizes, the legacy surface,
 the filter object, the verbatim error strings, the opt=1 device gate, the
-pool_compat refusal, the Clip container, and an import check: the port
-imports neither JAX nor sangnom_tpu.
+four entry points with pool_compat, the Clip container, and an import check:
+the port imports neither JAX nor sangnom_tpu, and its oracle source is a
+byte-identical copy of the TPU package's.
 """
 
 import os
@@ -178,17 +179,28 @@ def test_opt1_needs_cuda_tensors():
         sangnom2_op(tc, opt=1)
 
 
-def test_pool_compat_not_ported():
-    _, tc = _both("GRAY8", 16, 8, 2)
-    msg = r"pool_compat is not yet ported"
-    with pytest.raises(SangNomError, match=msg):
-        T.sangnom2(tc, pool_compat=True)
-    with pytest.raises(SangNomError, match=msg):
-        T.sangnom(tc, pool_compat=True)
-    with pytest.raises(SangNomError, match=msg):
-        T.SangNom2Filter(pool_compat=True)
-    with pytest.raises(SangNomError, match=msg):
-        T.bob(tc, pool_compat=True)
+POOL_ENTRY_POINTS = [
+    ("sangnom2", lambda M, c, opt: M.sangnom2(c, pool_compat=True, order=2, aac=40, opt=opt)),
+    ("sangnom", lambda M, c, opt: M.sangnom(c, pool_compat=True, order=0, aa=30, opt=opt)),
+    ("filter", lambda M, c, opt: M.SangNom2Filter(pool_compat=True, dh=True, opt=opt)(c)),
+    ("bob", lambda M, c, opt: M.bob(c, pool_compat=True, aac=20, opt=opt)),
+]
+
+
+@pytest.mark.parametrize("name,call", POOL_ENTRY_POINTS, ids=[e[0] for e in POOL_ENTRY_POINTS])
+@pytest.mark.parametrize("opt", [0, -1])
+def test_pool_compat_entry_points_match_jax(name, call, opt):
+    """sangnom2, sangnom, SangNom2Filter and bob with pool_compat=True, an
+    unaligned 4:2:0 clip (luma pad columns and chroma carry across frames)."""
+    jc, tc = _both("YUV420P8", 44, 16, 3, np.array([True, False, False]))
+    _same(call(J, jc, 0), call(T, tc, opt))
+
+
+def test_oracle_source_is_a_copy():
+    """The port compiles its own copy of the oracle; it must not drift from
+    the TPU package's."""
+    port = REPO / "sangnom_tpu_torch" / "native" / "oracle.cpp"
+    assert port.read_bytes() == (REPO / "sangnom_tpu" / "oracle" / "oracle.cpp").read_bytes()
 
 
 def test_clip_container():
