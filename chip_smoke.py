@@ -9,7 +9,10 @@ Drives the main path at full 1080 size: the 1080i YUV420P8 bob (60
 interlaced frames -> 120) and the single-rate ``sangnom2(order=1, dh=True)``
 on 120 fields of 1920x540.  Then the pool_compat path: the 1080i bob with
 ``pool_compat=True`` (16 interlaced frames -> 32) and 30 frames of 720x480
-YUV420P8, through each pool kernel (K3, and the K6 / K7 options).  Checks
+YUV420P8, through each pool kernel (K3, and the K6 / K7 options).  Then the
+width-sharded path: ``parallel.sangnom2_sharded`` on meshes of the one card
+(1x4 through K4 and through K5, 2x2 through K4) on the 1080 dh call and the
+woven 1080i bob, held bit-equal to the single-device kernel path.  Checks
 the outputs against the plain path and the native oracle, and times kernels
 and plain versions with CUDA events.  Each phase prints one line; any
 failure raises, so the script exits nonzero and never prints the final
@@ -32,6 +35,7 @@ B = 120  # fields of the single-rate dh call
 REPLACES = "sangnom_tpu/ops/pallas_kernel.py:463"
 SOURCE = "sangnom_tpu_torch/csrc/deint.cu"
 POOL_SOURCE = "sangnom_tpu_torch/csrc/pool.cu"
+SHARD_SOURCE = "sangnom_tpu_torch/csrc/shard.cu"
 N_POOL = 16  # interlaced 1080 frames of the pool_compat bob -> 32 frames
 N_SD = 30  # 720x480 frames of the pool_compat single-rate calls
 N_720 = 16  # 1280x720 frames of the pool_compat timing between those two sizes
@@ -421,7 +425,8 @@ def phase_pool_timing(fmt, clip_hd, clip_sd, hd_pool, card, details):
     return per
 
 
-def profile_call(fn, wall_ms: float, what: str, card: str) -> dict:
+def profile_call(fn, wall_ms: float, what: str, card: str,
+                 tag: str = "8 pool profile") -> dict:
     """Device time of one call of ``fn`` by torch.profiler, against
     ``wall_ms``, its time by CUDA events without the profiler: the device's
     busy and idle share, and the kernels that take the most device time."""
@@ -440,12 +445,12 @@ def profile_call(fn, wall_ms: float, what: str, card: str) -> dict:
             if e.device_type == DeviceType.CUDA and not e.key.startswith("sangnom/")]
     busy = sum(r[2] for r in rows)
     if not busy:
-        log(f"[8 pool profile] {what}: the profiler traced no device time; "
+        log(f"[{tag}] {what}: the profiler traced no device time; "
             f"busy share not measured")
         return {}
     rows.sort(key=lambda r: -r[2])
     top = [(k[:60], n, round(ms, 4)) for k, n, ms in rows[:6]]
-    log(f"[8 pool profile] {what}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+    log(f"[{tag}] {what}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
         f"per call (idle share {1 - busy / wall_ms:.3f}), {sum(r[1] for r in rows)} "
         f"kernel launches; top (name, launches, ms): {top} | {card}")
     return {"busy_ms": busy, "wall_ms": wall_ms, "launches": sum(r[1] for r in rows),
@@ -471,6 +476,298 @@ def _k7_err(pk, pc, pool, kept, aaf, spec) -> float:
     ra = pk.interp_fused(kept, *a, aaf, spec)
     rb = pk.interp_fused_plain(kept, *b, aaf, spec)
     return max([max_abs(ra, rb)] + [max_abs(x, y) for x, y in zip(a, b)])
+
+
+def phase_shard_matrix(get_format, KernelSpec, details):
+    """K4 and K5 vs their plain versions on CUDA tensors: formats and
+    numerics x shard counts 1/2/4/8 (thin shards, and a chroma-like plane
+    whose true width is short of the padded one) x chunk_rows 1/5/16, K4 with
+    no weave and weave offsets 0/1/per frame; bit-equal required."""
+    from sangnom_tpu_torch.core.geometry import aaf_as_pixel, scaled_aa_thresholds
+    from sangnom_tpu_torch.parallel import fused_smooth as fs
+    from sangnom_tpu_torch.parallel import shard_kernel as sk
+
+    rng = np.random.default_rng(17)
+    formats = [("GRAY8", "c"), ("GRAY8", "sse2"), ("GRAY16", "c"),
+               ("GRAY16", "sse2"), ("YUV420P10", "c"), ("YUV420P10", "sse2"),
+               ("GRAYS", "c")]
+    # K4: (shards, padded width, true width); K5: (shards, padded width)
+    k4_geoms = [(1, 1920, 1920), (2, 1920, 1917), (4, 988, 960), (8, 1920, 1920),
+                (8, 72, 70)]
+    k5_geoms = [(1, 480), (2, 988), (4, 1920), (8, 64)]
+    cases = {"K4": 0, "K5": 0}
+    for fmt_name, numerics in formats:
+        fmt = get_format(fmt_name)
+        spec = KernelSpec.from_format(fmt, sse2=numerics == "sse2")
+        aaf = aaf_as_pixel(scaled_aa_thresholds(48, 0, fmt)[0], fmt)
+        for n, S, w in k4_geoms:
+            kept = _rand_plane(rng, (3, 17, w), fmt)
+            kept = np.concatenate([kept, np.repeat(kept[:, :, -1:], S - w, axis=2)], axis=2)
+            kept = torch.from_numpy(np.ascontiguousarray(kept)).to(DEVICE)
+            pf = torch.from_numpy(rng.integers(0, 2, 3).astype(np.int32)).to(DEVICE)
+            pw = w if w < S else None
+            for chunk_rows in (1, 5, 16):
+                for off in (None, 0, 1, pf):
+                    before = sk.LAUNCHES["full"]
+                    if off is None:
+                        got = fs.interpolate_fused_full(kept, aaf, spec, n, pw, chunk_rows)
+                        want = fs.interpolate_fused_full_plain(kept, aaf, spec, n, pw, chunk_rows)
+                    else:
+                        got = fs.deinterlace_fused_full(kept, off, aaf, spec, n, pw, chunk_rows)
+                        want = fs.deinterlace_fused_full_plain(kept, off, aaf, spec, n, pw,
+                                                               chunk_rows)
+                    torch.cuda.synchronize()
+                    if sk.LAUNCHES["full"] == before or not torch.equal(got, want):
+                        raise AssertionError(
+                            f"K4 != plain: {fmt_name} {numerics} shards={n} S={S} w={w} "
+                            f"chunk_rows={chunk_rows} weave={'pf' if off is pf else off} "
+                            f"max_abs={max_abs(got, want)}")
+                    cases["K4"] += 1
+        for n, S in k5_geoms:
+            raw = (torch.from_numpy(rng.random((n, 27, 18, S // n), dtype=np.float32) * 300)
+                   if spec.is_float else torch.from_numpy(
+                       rng.integers(0, spec.mask + 1, (n, 27, 18, S // n)).astype(np.int32)))
+            raw[:, :, [0, 17]] = 0
+            raw = raw.to(DEVICE)
+            for chunk_rows in (1, 5, 16):
+                before = sk.LAUNCHES["smooth"]
+                got = fs.smooth_sharded_chunked(raw, spec, chunk_rows)
+                want = fs.smooth_sharded_chunked_plain(raw, spec, chunk_rows)
+                torch.cuda.synchronize()
+                if sk.LAUNCHES["smooth"] == before or not torch.equal(got, want):
+                    raise AssertionError(
+                        f"K5 != plain: {fmt_name} {numerics} shards={n} S={S} "
+                        f"chunk_rows={chunk_rows} max_abs={max_abs(got, want)}")
+                cases["K5"] += 1
+    details["shard_matrix_cases"] = cases
+    return cases
+
+
+def _plane_passes(clip, dh: bool, n_space: int):
+    """(rows of the kept field, columns per shard) of each plane pass of a
+    sharded call on a YUV420 clip: luma, then the fused U+V batch."""
+    from sangnom_tpu_torch.core.geometry import buffer_stride_elems
+    from sangnom_tpu_torch.parallel.sharding import _sharded_pad_width
+
+    fmt = clip.format
+    stride = buffer_stride_elems(clip.width, fmt.component_size)
+    out = []
+    for p in clip.planes[:2]:
+        _, h, w = p.shape
+        s_eff = stride if w >= stride else _sharded_pad_width(w, h, stride, n_space, fmt, dh)
+        out.append((h if dh else h // 2, s_eff // n_space))
+    return out
+
+
+def shard_expected(clip, dh: bool, n_data: int, n_space: int, arm: str) -> dict:
+    """Kernel launches and halo exchanges of one sharded call, from the chunk
+    geometry: per data row and plane pass, K4 one kept exchange and
+    ceil(bufH / R) chunks (the weave's n_tot = bufH); K5 two whole-plane
+    exchanges (kept rows, raw maps) and ceil((bufH-1) / R) chunks."""
+    from sangnom_tpu_torch.parallel import fused_smooth as fs
+
+    want = {"launches": 0, "kept": 0, "carry": 0}
+    for bufH, w_loc in _plane_passes(clip, dh, n_space):
+        if arm == "K4":
+            R, _ = fs.chunk_geometry_k4(w_loc, bufH)
+            chunks, kept = -(-bufH // R), 1
+        else:
+            R, _ = fs.chunk_geometry_k5(w_loc, bufH - 1)
+            chunks, kept = -(-(bufH - 1) // R), 2
+        want["launches"] += n_data * chunks
+        want["kept"] += n_data * kept
+        want["carry"] += n_data * chunks
+    return want
+
+
+def phase_sharded_main_path(clip_dh, woven, out_dh, out_bob, details):
+    """sangnom2_sharded at full 1080 size on meshes of the one card: 1x4
+    through K4 (default) and through K5 (smooth="chunked"), and 2x2 through
+    K4, each on the dh call and the woven bob; each output bit-equal to the
+    single-device kernel path (phase 4), launches and halo exchanges equal
+    to their formulas; the scan arm (opt=0) on 4-frame prefixes too.
+    Returns {arm: launches of its 1x4 run}."""
+    from sangnom_tpu_torch.parallel import default_mesh, sangnom2_sharded
+    from sangnom_tpu_torch.parallel import shard_kernel as sk
+    from sangnom_tpu_torch.parallel import width_sharded as ws
+
+    calls = {"dh": (clip_dh, dict(order=1, dh=True), out_dh),
+             "bob": (woven, dict(order=0), out_bob)}
+    runs = [("K4", 1, 4, None), ("K5", 1, 4, "chunked"), ("K4", 2, 2, None)]
+    launches = {}
+    for arm, n_data, n_space, smooth in runs:
+        mesh = default_mesh(n_data, n_space, devices=[DEVICE] * (n_data * n_space))
+        torch.cuda.synchronize()
+        sk.reset_launches()
+        ws.reset_exchanges()
+        outs = {name: sangnom2_sharded(c, mesh, space_axis="space", smooth=smooth, **kw)
+                for name, (c, kw, _) in calls.items()}
+        torch.cuda.synchronize()
+        got = dict(sk.LAUNCHES)
+        exch = dict(ws.HALO_EXCHANGES)
+        key = "full" if arm == "K4" else "smooth"
+        want = {"launches": 0, "kept": 0, "carry": 0}
+        for name, (c, kw, _) in calls.items():
+            for k, v in shard_expected(c, kw.get("dh", False), n_data, n_space, arm).items():
+                want[k] += v
+        if (got[key], exch["kept"], exch["carry"], exch["row"]) != (
+                want["launches"], want["kept"], want["carry"], 0) or sum(got.values()) != got[key]:
+            raise AssertionError(f"{arm} {n_data}x{n_space}: launches {got}, exchanges "
+                                 f"{exch}, expected {want}")
+        for name, (_, _, ref) in calls.items():
+            for i, (g, r) in enumerate(zip(outs[name].planes, ref.planes)):
+                if not torch.equal(g, r):
+                    raise AssertionError(f"{arm} {n_data}x{n_space} {name} plane {i} != the "
+                                         f"single-device kernel path, max_abs {max_abs(g, r)}")
+        del outs
+        if n_data == 1:
+            launches[arm] = got[key]
+        details[f"shard_main_{arm}_{n_data}x{n_space}"] = {"launches": got, "exchanges": exch}
+        log(f"[10 sharded main path] {arm} on a {n_data}x{n_space} mesh of {DEVICE}: dh and "
+            f"bob bit-equal to phase 4; {got[key]} launches, exchanges {exch} (formula "
+            f"{want})")
+    mesh = default_mesh(1, 4, devices=[DEVICE] * 4)
+    ws.reset_exchanges()
+    for name, (c, kw, ref) in calls.items():
+        got = sangnom2_sharded(c[0:4], mesh, space_axis="space", opt=0, **kw)
+        for i, (g, r) in enumerate(zip(got.planes, ref.planes)):
+            if not torch.equal(g, r[0:4]):
+                raise AssertionError(f"scan arm {name} plane {i} != phase 4")
+    torch.cuda.synchronize()
+    rows = sum(bufH - 1 for c, kw, _ in calls.values()
+               for bufH, _ in _plane_passes(c, kw.get("dh", False), 4))
+    if ws.HALO_EXCHANGES != {"kept": 4, "carry": 0, "row": rows}:
+        raise AssertionError(f"scan arm exchanges {ws.HALO_EXCHANGES}, expected {rows} rows")
+    log(f"[10 sharded main path] scan arm (opt=0), 1x4, 4-frame prefixes of dh and bob: "
+        f"bit-equal to phase 4; exchanges {dict(ws.HALO_EXCHANGES)}")
+    return launches
+
+
+def k4_work(n: int, N: int, steps: int, W_loc: int, HALO: int, S: int, elem: int = 1):
+    """(bytes, ops) of one woven K4 chunk launch: the kept rows it reads
+    (steps + 2 of W_ext columns), the woven rows it writes (2 * steps of the
+    plane width S), the carry row in (9 maps x W_ext) and out (9 x W_loc);
+    prepare and smoothing over every W_ext column, finalize over W_loc."""
+    W_ext = W_loc + 2 * HALO
+    nbytes = (n * N * (steps + 2) * W_ext * elem + N * 2 * steps * S * elem
+              + n * N * 9 * (W_ext + W_loc) * 4)
+    ops = n * N * steps * (W_ext * (OPS_PREPARE + OPS_SMOOTH) + W_loc * OPS_FINALIZE)
+    return nbytes, ops
+
+
+def k5_work(n: int, C: int, steps: int, W_loc: int, HK: int):
+    """(bytes, ops) of one K5 chunk launch: raw rows read (steps + 1 of W_ext
+    columns), the carry row in, the smoothed rows out (W_loc columns); the
+    smoothing of one map over every W_ext column."""
+    W_ext = W_loc + 2 * HK
+    nbytes = 4 * n * C * ((steps + 1) * W_ext + W_ext + steps * W_loc)
+    ops = n * C * steps * W_ext * (OPS_SMOOTH // 9)
+    return nbytes, ops
+
+
+def phase_shard_timing(clip_dh, woven, card, details):
+    """ms per call of the sharded dh and bob at space 1/2/4 through K4 and
+    K5, in turns with the single-device K1 call; ms per launch of K4 and K5
+    at the 1080 luma chunk shape (4 shards, 16 rows), their plain versions'
+    and their bounds.  Returns the per-launch numbers."""
+    from sangnom_tpu_torch import sangnom2
+    from sangnom_tpu_torch.core.geometry import aaf_as_pixel, scaled_aa_thresholds
+    from sangnom_tpu_torch.ops.primitives import KernelSpec
+    from sangnom_tpu_torch.parallel import default_mesh, sangnom2_sharded
+    from sangnom_tpu_torch.parallel import fused_smooth as fs
+    from sangnom_tpu_torch.parallel import shard_kernel as sk
+    from sangnom_tpu_torch.parallel.width_sharded import _exchange_halo, _shards
+
+    calls = {"dh": (clip_dh, dict(order=1, dh=True)), "bob": (woven, dict(order=0))}
+    arms = {"K1": (None, None)}
+    for n in (1, 2, 4):
+        arms[f"K4/space{n}"] = (n, None)
+        arms[f"K5/space{n}"] = (n, "chunked")
+    reps = {"K1": 5, "K4": 3, "K5": 1}
+
+    def fn(arm, wl):
+        c, kw = calls[wl]
+        n, smooth = arms[arm]
+        if n is None:
+            return lambda: sangnom2(c, **kw)
+        mesh = default_mesh(1, n, devices=[DEVICE] * n)
+        return lambda: sangnom2_sharded(c, mesh, space_axis="space", smooth=smooth, **kw)
+
+    e2e: dict = {}
+    for wl in calls:
+        fns = {arm: fn(arm, wl) for arm in arms}
+        for f in fns.values():
+            f()  # warm-up
+        for rnd in (list(arms), list(arms)[::-1]):
+            for arm in rnd:
+                e2e.setdefault(f"{wl}/{arm}", []).append(
+                    cuda_ms(fns[arm], reps[arm.split("/")[0]]))
+    for k, ts in e2e.items():
+        log(f"[11 shard timing] {k}: {min(ts):.3f} ms/call -> {120 / min(ts) * 1e3:.1f} "
+            f"output frames/s (windows {', '.join(f'{t:.3f}' for t in ts)}) | {card}")
+    details["shard_e2e_ms"] = e2e
+    for wl in calls:
+        details[f"shard_profile_{wl}"] = profile_call(
+            fn("K4/space4", wl), min(e2e[f"{wl}/K4/space4"]), f"{wl}/K4/space4", card,
+            "11 shard profile")
+
+    # each kernel alone at the 1080 dh luma chunk shape: 4 shards, R = 16
+    fmt = clip_dh.format
+    spec = KernelSpec.from_format(fmt)
+    aaf = aaf_as_pixel(scaled_aa_thresholds(48, 0, fmt)[0], fmt)
+    kept = clip_dh.planes[0]
+    N, bufH, S = kept.shape
+    n = 4
+    W_loc = S // n
+    R, HALO = fs.chunk_geometry_k4(W_loc, bufH)
+    keptx = _exchange_halo(_shards(kept, n), HALO, "kept")
+    smx = torch.zeros((n, N, 9, W_loc + 2 * HALO), dtype=spec.acc_dtype, device=DEVICE)
+    out_k = torch.empty((N, 2 * bufH, S), dtype=kept.dtype, device=DEVICE)
+    out_p = torch.empty_like(out_k)
+    sm_k = sk.full_chunk(keptx, smx, out_k, 0, 0, R, HALO, S, aaf, spec)
+    sm_p = fs._full_chunk_plain(keptx, smx, out_p, 0, 0, R, HALO, S, aaf, spec)
+    torch.cuda.synchronize()
+    k4_err = max(max_abs(out_k[:, :2 * R], out_p[:, :2 * R]), max_abs(sm_k, sm_p))
+    k4 = dict(
+        ms=min(cuda_ms(lambda: sk.full_chunk(keptx, smx, out_k, 0, 0, R, HALO, S, aaf, spec), 10)
+               for _ in range(2)),
+        plain_ms=cuda_ms(lambda: fs._full_chunk_plain(keptx, smx, out_p, 0, 0, R, HALO, S,
+                                                      aaf, spec), 1),
+        max_abs_err=k4_err)
+    k4["bound_ms"], k4["bound_by"] = bound(*k4_work(n, N, R, W_loc, HALO, S))
+    del keptx, smx, out_k, out_p
+
+    C = 9 * N
+    R5, HK = fs.chunk_geometry_k5(W_loc, bufH - 1)
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    raw = torch.randint(0, 256, (n, C, bufH + 1, W_loc), generator=g, device=DEVICE,
+                        dtype=torch.int32)
+    raw[:, :, [0, bufH]] = 0
+    rawx = _exchange_halo(raw, HK, "kept")
+    del raw
+    smx5 = torch.randint(0, 256, (n, C, W_loc + 2 * HK), generator=g, device=DEVICE,
+                         dtype=torch.int32)
+    o_k = torch.empty((n, C, bufH - 1, W_loc), dtype=torch.int32, device=DEVICE)
+    o_p = torch.empty_like(o_k)
+    sk.smooth_chunk(smx5, rawx, o_k, 0, R5, HK, spec)
+    fs._smooth_chunk_plain(smx5, rawx, o_p, 0, R5, HK, spec)
+    torch.cuda.synchronize()
+    k5 = dict(
+        ms=min(cuda_ms(lambda: sk.smooth_chunk(smx5, rawx, o_k, 0, R5, HK, spec), 10)
+               for _ in range(2)),
+        plain_ms=cuda_ms(lambda: fs._smooth_chunk_plain(smx5, rawx, o_p, 0, R5, HK, spec), 1),
+        max_abs_err=max_abs(o_k[:, :, :R5], o_p[:, :, :R5]))
+    k5["bound_ms"], k5["bound_by"] = bound(*k5_work(n, C, R5, W_loc, HK))
+    del rawx, smx5, o_k, o_p
+    for name, m, shape in (
+            ("K4", k4, f"weave, {n} shards x {N} fields, W_loc {W_loc} + 2x{HALO} halo, "
+                       f"{R} rows"),
+            ("K5", k5, f"{n} shards x {C} map rows, W_loc {W_loc} + 2x{HK} halo, {R5} rows")):
+        log(f"[11 shard timing] {name} per launch at the 1080 dh luma chunk ({shape}): "
+            f"{m['ms']:.4f} ms, plain {m['plain_ms']:.3f} ms, bound {m['bound_ms']:.4f} ms "
+            f"({m['bound_by']}), max_abs_err {m['max_abs_err']} | {card}")
+    details["shard_kernel_ms"] = {"K4": k4, "K5": k5}
+    return {"K4": k4, "K5": k5}
 
 
 def main_path_inputs():
@@ -513,7 +810,7 @@ def main() -> int:
     t0 = time.perf_counter()
     compile_s = dk.build()
     dk._load()
-    log(f"[2 build] kernel library built from {SOURCE} and {POOL_SOURCE} "
+    log(f"[2 build] kernel library built from {SOURCE}, {POOL_SOURCE} and {SHARD_SOURCE} "
         f"(one nvcc each, in parallel) in {compile_s:.1f} s "
         f"(load {time.perf_counter() - t0:.1f} s)")
     details["build_s"] = compile_s
@@ -655,7 +952,6 @@ def main() -> int:
 
     # 7. the pool_compat main path, once per kernel arm
     t0 = time.perf_counter()
-    del clip_dh, out_dh, out_bob
     hd, sd = pool_inputs()
     clip_hd = Clip.from_numpy(hd, fmt, device=DEVICE, tff=True)
     clip_sd = Clip.from_numpy(sd, fmt, device=DEVICE)
@@ -669,6 +965,23 @@ def main() -> int:
 
     # 8. pool timing
     pool_ms = phase_pool_timing(fmt, clip_hd, clip_sd, hd_pool, card, details)
+    del clip_hd, clip_sd, hd_pool
+
+    # 9. the width-sharded kernels vs their plain versions on the card
+    t0 = time.perf_counter()
+    cases = phase_shard_matrix(get_format, KernelSpec, details)
+    log(f"[9 shard kernels vs plain] {cases} cases bit-equal on the card (u8/u16/"
+        f"10-bit/f32, c/sse2, shards 1/2/4/8 with thin and chroma-width shards, "
+        f"chunk_rows 1/5/16, K4 no weave and weave 0/1/per-frame) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 10. the sharded main path at full width, then 11. its timing
+    t0 = time.perf_counter()
+    woven = double_weave(separate_fields(clip_bob))
+    shard_launches = phase_sharded_main_path(clip_dh, woven, out_dh, out_bob, details)
+    log(f"[10 sharded main path] done in {time.perf_counter() - t0:.1f} s")
+    del out_dh, out_bob
+    shard_ms = phase_shard_timing(clip_dh, woven, card, details)
 
     log("[details] " + json.dumps(details))
     dk_bytes, dk_ops = 0, 0
@@ -701,6 +1014,17 @@ def main() -> int:
             "replaces": replaces,
             "launches": pool_launches[{"K3": "smooth", "K6": "split3", "K7": "fused"}[key]],
             "max_abs_err": max(m["max_abs_err"], pool_ms[f"{key}/chroma"]["max_abs_err"]),
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
+        })
+    for key, name, replaces in (
+        ("K4", "shard_full_kernel (K4)", "sangnom_tpu/parallel/fused_smooth.py:480"),
+        ("K5", "shard_smooth_kernel (K5)", "sangnom_tpu/parallel/fused_smooth.py:116"),
+    ):
+        m = shard_ms[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SHARD_SOURCE, "replaces": replaces,
+            "launches": shard_launches[key], "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,
         })

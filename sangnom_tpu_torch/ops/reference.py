@@ -65,6 +65,11 @@ def error_maps_list(taps, preds) -> list:
     ]
 
 
+def error_maps_from_taps(taps, preds) -> torch.Tensor:
+    """The 9 raw error maps stacked: [9, ...] in spatial priority order."""
+    return torch.stack(error_maps_list(taps, preds))
+
+
 def _hbox7(line: torch.Tensor) -> torch.Tensor:
     """7-tap horizontal box sum, taps edge-clamped at the line's width (the
     padded stride, reference src/SangNom2.cpp:141-152), summed strictly left
@@ -77,20 +82,26 @@ def _hbox7(line: torch.Tensor) -> torch.Tensor:
 
 
 def smooth_scan(raw: torch.Tensor, spec: KernelSpec,
-                init: torch.Tensor | None = None) -> torch.Tensor:
+                init: torch.Tensor | None = None,
+                hbox_fn=None) -> torch.Tensor:
     """The recursive 3x7 smoothing over buffer rows 1..bufH-1.
 
-    raw: [bufH+1, 9, ..., S] raw error maps.  Rows 0 and bufH are the
-    buffer's boundary rows: zero under the zero-defined contract, carried
-    pool content in pool-compat mode, which passes ``init`` = row 0 as the
-    smoothed "row 0" seed (zero when None).
-    Returns the smoothed rows [bufH-1, 9, ..., S]."""
+    raw: [bufH+1, ..., S] raw error maps (rows first; the rest is any layout
+    ``hbox_fn`` takes).  Rows 0 and bufH are the buffer's boundary rows:
+    zero under the zero-defined contract, carried pool content in
+    pool-compat mode, which passes ``init`` = row 0 as the smoothed "row 0"
+    seed (zero when None).  ``hbox_fn``: the horizontal 7-tap box sum of one
+    line (default `_hbox7`, clamped at the line's width; the width-sharded
+    scan passes a halo-exchanging one, so the recursion is shared).
+    Returns the smoothed rows [bufH-1, ..., S]."""
     bufH = raw.shape[0] - 1
+    if hbox_fn is None:
+        hbox_fn = _hbox7
     sm = torch.zeros_like(raw[0]) if init is None else init
     out = []
     for b in range(1, bufH):
         line = sm + raw[b] + raw[b + 1]  # row b-1 already smoothed
-        sm = smooth_writeback(_hbox7(line), spec)
+        sm = smooth_writeback(hbox_fn(line), spec)
         out.append(sm)
     if not out:
         return raw[:0]
@@ -157,7 +168,7 @@ def interpolate_field_batch(
     # stage 1: prepare, into the zero-defined [bufH+1, 9, N, S] pool
     S_sm = smooth_width(w, stride, spec)
     raw = kept.new_zeros((bufH + 1, 9, N, S_sm))
-    maps = torch.stack(error_maps_list(taps, preds))  # [9, N, bufH-1, w]
+    maps = error_maps_from_taps(taps, preds)  # [9, N, bufH-1, w]
     raw[1:bufH, :, :, :w] = maps.permute(2, 0, 1, 3)
     del maps
 

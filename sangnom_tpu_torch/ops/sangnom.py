@@ -58,6 +58,7 @@ def deinterlace_plane_batch(
     spec: KernelSpec,
     stride: int,
     interp_fn: Callable,
+    plane_width: int | None = None,
     interlaced_tff: bool | None = None,
 ) -> torch.Tensor:
     """One plane, all frames: [N, h_src, w] -> [N, h_out, w].
@@ -65,6 +66,11 @@ def deinterlace_plane_batch(
     The per-plane body of GetFrame (reference src/SangNom2.cpp:361-393):
     kept-field copy, boundary-line duplication, interpolation.  ``offsets``
     is an int (orders 1/2) or a per-frame [N] int32 tensor (order 0).
+
+    ``plane_width`` not None: the width-sharded path (parallel.sharding),
+    where ``src`` is edge-padded past the plane's true width, which it
+    passes on to ``interp_fn``.  Its weave (``fused_weave.sharded``, the
+    number of width shards) runs when a shard is at least 9 columns wide.
 
     ``interlaced_tff`` not None (requires dh): ``src`` is an interlaced
     [N/2, h, w] plane whose fields are the dh sources (the bob pipeline);
@@ -90,7 +96,9 @@ def deinterlace_plane_batch(
     # The CUDA backend emits the complete woven plane (kept rows,
     # interpolated rows and the boundary duplicate) from the kernel.
     fused_weave = getattr(interp_fn, "fused_weave", None)
-    if fused_weave is not None and bufH >= 2:
+    weave_ok = fused_weave is not None and bufH >= 2
+    shards = getattr(fused_weave, "sharded", 0)
+    if weave_ok and plane_width is None and not shards:
         with stage_scope("interpolate+weave"):
             return fused_weave(kept, offsets, aaf, spec, stride,
                                interlaced_tff=interlaced_tff)
@@ -98,8 +106,16 @@ def deinterlace_plane_batch(
         from sangnom_tpu_torch.core.fields import _split_plane
 
         kept = _split_plane(src, interlaced_tff)
+    if weave_ok and shards and kept.shape[2] // shards >= 9:
+        # the sharded weave; thinner shards interpolate, then weave below
+        with stage_scope("interpolate+weave"):
+            return fused_weave(kept, offsets, aaf, spec, stride,
+                               plane_width=plane_width)
     with stage_scope("interpolate"):
-        interp = interp_fn(kept, aaf, spec, stride)
+        if plane_width is None:
+            interp = interp_fn(kept, aaf, spec, stride)
+        else:
+            interp = interp_fn(kept, aaf, spec, stride, plane_width=plane_width)
     return weave_assemble(kept, interp, offsets)
 
 
@@ -159,14 +175,21 @@ def sangnom2_impl(
     opt: int,
     numerics: str = "c",
     interlaced_tff: bool | None = None,
+    interp_fn: Callable | None = None,
+    plane_widths: tuple | None = None,
+    stride: int | None = None,
 ):
     """The whole-frame-batch transform over plane tensors.
 
     ``parity``: host bool array, read only for order=0.  ``numerics``: "c"
     (the parity target) or "sse2" (the reference's second numeric contract,
-    see ops.primitives.KernelSpec)."""
+    see ops.primitives.KernelSpec).  The width-sharded path
+    (parallel.sharding) passes its own ``interp_fn``, the planes' true
+    ``plane_widths`` (its planes are edge-padded) and the luma ``stride``;
+    by default the backend follows ``opt`` and the stride the luma plane."""
     device = planes[0].device
-    interp_fn = _pick_backend(opt, device)
+    if interp_fn is None:
+        interp_fn = _pick_backend(opt, device)
     spec = KernelSpec.from_format(fmt, sse2=(numerics == "sse2"))
     log_dispatch(
         fmt=fmt.name, backend=interp_fn.__module__, acc_dtype=spec.acc_dtype,
@@ -175,9 +198,13 @@ def sangnom2_impl(
         width=planes[0].shape[2], device=device,
     )
     aafs = scaled_aa_thresholds(aa, aac, fmt)
-    stride = buffer_stride_elems(planes[0].shape[2], fmt.component_size)
+    if stride is None:
+        stride = buffer_stride_elems(planes[0].shape[2], fmt.component_size)
     process = [luma, chroma, chroma]
     offsets = field_offsets(order, parity, device)
+
+    def width_of(i):
+        return None if plane_widths is None else plane_widths[i]
 
     out: dict[int, torch.Tensor] = {}
     chroma_planes = [
@@ -192,7 +219,8 @@ def sangnom2_impl(
         n = planes[1].shape[0] * (1 if interlaced_tff is None else 2)
         res = deinterlace_plane_batch(
             uv, offs2, dh=dh, aaf=aaf_as_pixel(aafs[1], fmt), spec=spec,
-            stride=stride, interp_fn=interp_fn, interlaced_tff=interlaced_tff,
+            stride=stride, interp_fn=interp_fn, plane_width=width_of(1),
+            interlaced_tff=interlaced_tff,
         )
         out[1], out[2] = res[:n], res[n:]
 
@@ -213,7 +241,8 @@ def sangnom2_impl(
             continue
         out[i] = deinterlace_plane_batch(
             p, offsets, dh=dh, aaf=aaf_as_pixel(aafs[i], fmt), spec=spec,
-            stride=stride, interp_fn=interp_fn, interlaced_tff=interlaced_tff,
+            stride=stride, interp_fn=interp_fn, plane_width=width_of(i),
+            interlaced_tff=interlaced_tff,
         )
     return tuple(out[i] for i in range(len(planes)))
 
