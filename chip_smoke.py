@@ -14,7 +14,11 @@ width-sharded path: ``parallel.sangnom2_sharded`` on meshes of the one card
 (1x4 through K4 and through K5, 2x2 through K4) on the 1080 dh call and the
 woven 1080i bob, held bit-equal to the single-device kernel path.  Checks
 the outputs against the plain path and the native oracle, and times kernels
-and plain versions with CUDA events.  Each phase prints one line; any
+and plain versions with CUDA events.  Last, the cost-model path: the probe
+kernels K8-K10 (``csrc/probes.cu``) held bit-equal to their plain versions,
+then the op-class calibration at full shape, the step-isolation arms and the
+dynamic-row probe through their entry points, the measured rates and the
+cost model's prediction of K1's row step against phase 5's time.  Each phase prints one line; any
 failure raises, so the script exits nonzero and never prints the final
 ``"ok"`` line.  Imports nothing of JAX.
 """
@@ -22,12 +26,14 @@ failure raises, so the script exits nonzero and never prints the final
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from sangnom_tpu_torch.utils.cost_model import (
+    OPS_FINALIZE, OPS_PREPARE, OPS_SMOOTH, bound, card_line)
 
 FMT = "YUV420P8"
 N_IN = 60  # interlaced input frames of the bob -> 120 output frames
@@ -41,28 +47,9 @@ N_SD = 30  # 720x480 frames of the pool_compat single-rate calls
 N_720 = 16  # 1280x720 frames of the pool_compat timing between those two sizes
 DEVICE = "cuda"
 
-# The card's peaks for the bound: HBM bytes/s (H100 SXM data sheet) and
-# int32 ALU operations/s (64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost,
-# Hopper white paper).
-PEAK_BYTES_S = 3.35e12
-PEAK_INT32_S = 64 * 132 * 1.98e9
-# int32 operations the algorithm needs, per column (reference
-# src/SangNom2.cpp:74-273): prepare of one kept pair (4 predictors x 6 + 9
-# absolute differences x 2), smoothing of one row of 9 maps (9 x (2
-# vertical + 6 box adds + 2 writeback)), finalize of one pixel (8 min + 16
-# compare/select + 3 threshold + 4 average).
-OPS_PREPARE, OPS_SMOOTH, OPS_FINALIZE = 42, 90, 31
-
 
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -78,12 +65,6 @@ def cuda_ms(fn, reps: int) -> float:
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
-
-
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """(least ms the card could take, what binds it) for int32 work."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_INT32_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def deint_work(n_fields: int, bufH: int, w: int, S: int, elem: int = 1):
@@ -770,6 +751,154 @@ def phase_shard_timing(clip_dh, woven, card, details):
     return {"K4": k4, "K5": k5}
 
 
+PROBE_SOURCE = "sangnom_tpu_torch/csrc/probes.cu"
+def probe_src():
+    """The probes' [120, 2048] int32 input, seed 0 (the tools' own)."""
+    return torch.from_numpy(np.random.default_rng(0).integers(0, 255, (120, 2048))).to(
+        DEVICE, torch.int32)
+
+
+def phase_probe_matrix(details):
+    """K8, K9 and K10 vs their plain versions on CUDA tensors: every K8 arm
+    at full [120, 2048], 4 steps, at the differential's long chain; K9's
+    default arms (bigslab@1 must raise) and every other arm once; K10 at the
+    probe's shape and at 540 x 1920 over 542 steps, u8 and i32.  Returns
+    {kernel: (cases, max_abs_err)}; any difference raises."""
+    from sangnom_tpu_torch.tools import calibrate_vpu as cv
+    from sangnom_tpu_torch.tools import isolate_step as iso
+    from sangnom_tpu_torch.tools import probe_pool_dynrow as dyn
+
+    src = probe_src()
+    res = {"K8": [0, 0.0], "K9": [0, 0.0], "K10": [0, 0.0]}
+
+    def check(key, got, want, what):
+        torch.cuda.synchronize()
+        err = max_abs(got, want)
+        res[key][1] = max(res[key][1], err)
+        if err != 0.0:
+            raise AssertionError(f"{key} {what}: kernel != plain, max_abs {err}")
+        res[key][0] += 1
+
+    for kind in cv.OPS_PER_ITER:
+        k = cv.chain_lengths(kind)[1]
+        got = cv.run(src, kind, k, steps=4)
+        want = cv.run_plain(src, kind, k, steps=4)
+        if kind in cv.TRANSPOSED and got[:, :, 120:].any():
+            raise AssertionError(f"K8 {kind}: columns 120..127 not zero")
+        check("K8", got, want, f"{kind} k={k}")
+    arms = list(iso.DEFAULT_ARMS) + [f"{k}@1" for k in iso.KINDS if k != "bigslab"]
+    for arm in arms + ["ramt130@2", "bigslab_iota@1"]:
+        kind, _, k = arm.partition("@")
+        if kind == "bigslab":
+            for fn in (iso.run, iso.run_plain):
+                try:
+                    fn(src, kind, int(k))
+                except ValueError:
+                    continue
+                raise AssertionError(f"K9 bigslab@1 did not raise in {fn.__name__}")
+            continue
+        check("K9", iso.run(src, kind, int(k)), iso.run_plain(src, kind, int(k)), arm)
+    for dtype in (np.uint8, np.int32):
+        for H, S, steps in ((64, 256, 70), (540, 1920, 542)):
+            kept = torch.from_numpy(dyn.probe_input(dtype, H, S)).to(DEVICE)
+            check("K10", dyn.dynrow(kept, steps), dyn.dynrow_plain(kept, steps),
+                  f"{np.dtype(dtype).name} {H}x{S} steps {steps}")
+    details["probe_matrix"] = res
+    return res
+
+
+def phase_cost_model_path(card, details):
+    """The cost-model path through its entry points, launch counts set to 0
+    just before and read just after: the op-class calibration at full shape
+    (all 30 arms, 512 steps, differential, best of 3; K8), the step-isolation tool's
+    default arms (K9) and the dynamic-row probe (K10).  Returns (rates,
+    launches per kernel)."""
+    from sangnom_tpu_torch.tools import calibrate_vpu as cv
+    from sangnom_tpu_torch.tools import isolate_step as iso
+    from sangnom_tpu_torch.tools import probe_kernel as prk
+    from sangnom_tpu_torch.tools import probe_pool_dynrow as dyn
+    from sangnom_tpu_torch.utils.cost_model import PEAK_INT32_S
+
+    src = probe_src()
+    torch.cuda.synchronize()
+    prk.reset_launches()
+    rates = cv.calibrate(src, tuple(cv.OPS_PER_ITER), reps=3,
+                         log=lambda line: log(f"[13 calibration]{line} | {card}"))
+    if iso.main([]) != 0 or dyn.main() != 0:
+        raise AssertionError("a probe tool failed")
+    torch.cuda.synchronize()
+    launches = dict(prk.LAUNCHES)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a probe kernel did not launch on the cost-model path: {launches}")
+    if min(rates.values()) <= 0.0:
+        raise AssertionError(f"a calibration arm measured no rate: {rates}")
+    details["calibration_rates"] = rates
+    details["calibration_share_of_int32_peak"] = {k: v / PEAK_INT32_S for k, v in rates.items()}
+    log(f"[13 cost-model path] calibration of {len(rates)} arms, isolate_step and "
+        f"probe_pool_dynrow: launches {launches}")
+    return rates, launches
+
+
+def predicted_k1_step(rates, luma_ms: float, card: str, details) -> dict:
+    """K1's luma launch (120 fields x 1920 columns, 539 row steps) against
+    the cost model's step prediction, from this run's rates and from the
+    stored ``MEASURED_OP_RATES``."""
+    from sangnom_tpu_torch.utils import cost_model as cm
+
+    elems = 120 * 1920
+    here = sum(n * elems / rates[c] for c, n in cm.STEP_OP_CLASSES.items())
+    stored = cm.predicted_step_time_s(120, 1920)
+    measured = luma_ms * 1e-3 / 539
+    out = {"measured_us": measured * 1e6, "predicted_us": here * 1e6,
+           "predicted_stored_us": stored * 1e6}
+    log(f"[13 K1 step] luma step measured {measured * 1e6:.3f} us (phase 5 luma launch "
+        f"{luma_ms:.4f} ms / 539 steps); predicted from this run's rates "
+        f"{here * 1e6:.3f} us ({here / measured:.3f} of measured), from the stored "
+        f"rates {stored * 1e6:.3f} us | {card}")
+    details["k1_step"] = out
+    return out
+
+
+def probe_timing(card, details) -> dict:
+    """ms of one launch of each probe kernel and of its plain version on the
+    same inputs, with its bound: K8's mix arm (the kernel-shaped blend) at
+    [120, 2048], k 96, 32 steps; K9's unroll@12 (8 steps); K10 at 540 x 1920
+    u8 over 542 steps."""
+    from sangnom_tpu_torch.tools import calibrate_vpu as cv
+    from sangnom_tpu_torch.tools import isolate_step as iso
+    from sangnom_tpu_torch.tools import probe_pool_dynrow as dyn
+
+    src = probe_src()
+    G, W = src.shape
+    kept = torch.from_numpy(dyn.probe_input(np.uint8, 540, 1920)).to(DEVICE)
+    out_bytes = lambda steps: steps * G * 128 * 4  # noqa: E731
+    cases = {
+        "K8": (lambda: cv.run(src, "mix", 96, steps=32),
+               lambda: cv.run_plain(src, "mix", 96, steps=32),
+               (G * W * 4 + out_bytes(32), 96 * 32 * G * W * cv.OPS_PER_ITER["mix"]),
+               "mix arm, [120, 2048] i32, k 96, 32 steps"),
+        # unroll: 3 roll+add pairs on 5 slabs and 6 shifted adds on b an iteration
+        "K9": (lambda: iso.run(src, "unroll", 12), lambda: iso.run_plain(src, "unroll", 12),
+               (G * W * 4 + out_bytes(8), 12 * 8 * G * W * (5 * 6 + 12)),
+               "unroll@12, [120, 2048] i32, 8 steps"),
+        "K10": (lambda: dyn.dynrow(kept, 542), lambda: dyn.dynrow_plain(kept, 542),
+                (540 * 1920 + 542 * 1920 * 4, 542 * 1920 * 5),
+                "540 x 1920 u8, 542 steps"),
+    }
+    res = {}
+    for key, (kern, plain, work, what) in cases.items():
+        kern()
+        plain()
+        k_ms = min(cuda_ms(kern, 5) for _ in range(2))
+        p_ms = cuda_ms(plain, 1)
+        b_ms, b_by = bound(*work)
+        res[key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"[13 probe timing] {key} ({what}): {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}) | {card}")
+    details["probe_kernel_ms"] = res
+    return res
+
+
 def main_path_inputs():
     """The bench's 1080 inputs, seed 7: 120 dh fields first, then 60
     interlaced frames."""
@@ -810,7 +939,8 @@ def main() -> int:
     t0 = time.perf_counter()
     compile_s = dk.build()
     dk._load()
-    log(f"[2 build] kernel library built from {SOURCE}, {POOL_SOURCE} and {SHARD_SOURCE} "
+    log(f"[2 build] kernel library built from {SOURCE}, {POOL_SOURCE}, {SHARD_SOURCE} "
+        f"and {PROBE_SOURCE} "
         f"(one nvcc each, in parallel) in {compile_s:.1f} s "
         f"(load {time.perf_counter() - t0:.1f} s)")
     details["build_s"] = compile_s
@@ -982,6 +1112,20 @@ def main() -> int:
     log(f"[10 sharded main path] done in {time.perf_counter() - t0:.1f} s")
     del out_dh, out_bob
     shard_ms = phase_shard_timing(clip_dh, woven, card, details)
+    del clip_dh, clip_bob, woven
+
+    # 12. the probe kernels vs their plain versions, 13. the cost-model path
+    t0 = time.perf_counter()
+    probe_res = phase_probe_matrix(details)
+    log(f"[12 probe kernels vs plain] K8 {probe_res['K8'][0]} arms, K9 "
+        f"{probe_res['K9'][0]} arms (bigslab@1 raises in both), K10 "
+        f"{probe_res['K10'][0]} cases bit-equal on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rates, probe_launches = phase_cost_model_path(card, details)
+    predicted_k1_step(rates, per_launch[0], card, details)
+    probe_ms = probe_timing(card, details)
+    log(f"[13 cost-model path] done in {time.perf_counter() - t0:.1f} s")
 
     log("[details] " + json.dumps(details))
     dk_bytes, dk_ops = 0, 0
@@ -1025,6 +1169,19 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SHARD_SOURCE, "replaces": replaces,
             "launches": shard_launches[key], "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
+        })
+    for key, name, replaces, lkey in (
+        ("K8", "calibrate kernels (K8: line, mm and step arms)",
+         "tools/calibrate_vpu.py:351", "calibrate"),
+        ("K9", "isolate_kernel (K9)", "tools/archive/isolate_step.py:126", "isolate"),
+        ("K10", "dynrow_kernel (K10)", "tools/archive/probe_pool_dynrow.py:26", "dynrow"),
+    ):
+        m = probe_ms[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": PROBE_SOURCE, "replaces": replaces,
+            "launches": probe_launches[lkey], "max_abs_err": probe_res[key][1],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,
         })
