@@ -114,13 +114,18 @@ def phase_kernel_matrix(dk, get_format, KernelSpec, details):
     formats = [("GRAY8", "c"), ("GRAY8", "sse2"), ("GRAY16", "c"),
                ("GRAY16", "sse2"), ("YUV420P10", "c"), ("YUV420P10", "sse2"),
                ("GRAYS", "c")]
-    shapes = [(3, 9, 61), (3, 9, 1920), (75, 6, 61)]  # 75 frames: 150 fields
+    # (frames, kept rows, width, stride or None for the next multiple of 32):
+    # 75 frames give 150 fields; 3840 takes the single-buffer route (u8) or
+    # global scratch; stride 1023 gives S = 1023, a partial last column group;
+    # width 5 is below the 7-tap span
+    shapes = [(3, 9, 61, None), (3, 9, 1920, None), (75, 6, 61, None),
+              (2, 6, 3840, None), (3, 9, 1023, 1023), (3, 9, 5, 5)]
     for fmt_name, numerics in formats:
         fmt = get_format(fmt_name)
         spec = KernelSpec.from_format(fmt, sse2=numerics == "sse2")
         aaf = aaf_as_pixel(scaled_aa_thresholds(48, 48, fmt)[0], fmt)
-        for n, bufH, w in shapes:
-            stride = -(-w // 32) * 32
+        for n, bufH, w, stride in shapes:
+            stride = stride or -(-w // 32) * 32
             for tff in (None, True, False):
                 n_fields = n if tff is None else 2 * n
                 shape = (n, bufH, w) if tff is None else (n, 2 * bufH, w)
@@ -950,7 +955,8 @@ def main() -> int:
     cases = phase_kernel_matrix(dk, get_format, KernelSpec, details)
     log(f"[3 kernel vs plain] {cases} cases bit-equal on the card "
         f"(u8/u16/10-bit/f32, c/sse2, offsets 0/1/per-frame, interlaced "
-        f"none/tff/bff, widths 61/1920, 150 fields) in {time.perf_counter() - t0:.1f} s")
+        f"none/tff/bff, widths 61/1920/3840/1023 unpadded/5, 150 fields; routes "
+        f"double, single and global) in {time.perf_counter() - t0:.1f} s")
 
     # 4. main path at full size
     fmt = get_format(FMT)
@@ -1046,9 +1052,20 @@ def main() -> int:
     kernel, plain = dk.deinterlace_field_batch_fused, dk.deinterlace_field_batch_plain
     per_launch = [cuda_ms(lambda a=a: kernel(a[0], a[1], a[2], spec, stride, a[3]), 10)
                   for a in launches_bob]
-    log(f"[5 timing] deint kernel per bob launch: luma {per_launch[0]:.3f} ms, "
-        f"U/V {per_launch[1]:.3f} ms | {card}")
+    smem_limit = dk._max_smem_bytes(dk._load(), torch.device(DEVICE))
+    plans = [dk.launch_plan(s.shape[2], width_tiers(s.shape[2], s.shape[1] // 2, stride, spec)[2],
+                            s.element_size(), smem_limit) for s, _, _, _ in launches_bob]
+    steps = [src.shape[1] // 2 - 1 for src, _, _, _ in launches_bob]  # 539, 269
+    log(f"[5 timing] deint kernel per bob launch: luma {per_launch[0]:.3f} ms "
+        f"({per_launch[0] / steps[0] * 1e3:.3f} us a row step), U/V "
+        f"{per_launch[1]:.3f} ms ({per_launch[1] / steps[1] * 1e3:.3f} us a row step) "
+        f"| {card}")
+    for name, plan in zip(("luma", "U/V"), plans):
+        log(f"[5 plan] bob {name} launch: route {plan.route}, {plan.smem_bytes} bytes "
+            f"of shared memory, {plan.threads} threads x {plan.cols} columns")
     details["kernel_ms_per_launch"] = per_launch
+    details["row_step_us"] = [t / n * 1e3 for t, n in zip(per_launch, steps)]
+    details["plans"] = [p._asdict() for p in plans]
     k_ms, p_ms = [], []
     for arm in ("plain", "kernel", "kernel", "plain"):  # in turns
         if arm == "kernel":

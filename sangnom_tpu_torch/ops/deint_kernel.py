@@ -22,6 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -50,6 +51,7 @@ _max_smem: dict[int, int] = {}
 # Storage dtype -> the C launcher's dtype code.
 _DTYPE_CODE = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
 _MAPS = 9
+_RING_ROWS = 4  # kept-row ring slots
 
 
 def _nvcc() -> str:
@@ -117,10 +119,11 @@ def _load() -> ctypes.CDLL:
         i, p = ctypes.c_int, ctypes.c_void_p
         lib.sno_deint_launch.argtypes = [
             i, i, i,  # dtype, sse2, cols
-            p, p, p, p,  # src, dst, offsets, global smoothing scratch
+            p, p, p, p, p,  # src, dst, offsets, global buffer and raw scratch
             i, i, i, i,  # n_fields, bufH, w, S
+            i, i, i,  # pitch_b, pitch_r, pitch_p
             ctypes.c_longlong,  # in_frame_stride
-            i, i, i,  # interlaced, weave, static_offset
+            i, i, i, i,  # interlaced, weave, static_offset, dbuf
             ctypes.c_double,  # aaf
             i, i,  # threads, smem_bytes
             p,  # stream
@@ -147,17 +150,60 @@ def _max_smem_bytes(lib: ctypes.CDLL, device: torch.device) -> int:
 
 def launch_shape(S: int) -> tuple[int, int]:
     """(columns per thread, threads per block) covering S smoothed columns:
-    one column per thread up to 512 columns, else 4 columns per thread
-    (<= 512 threads), else 8 (<= 1024 threads).  The kernel is instantiated
-    for exactly these column counts.  (A 2-column build spilled 1 KB per
-    thread under ptxas for sm_90a and ran the 1080 chroma launch 5x slower
-    than 4 columns on an H100: 12.0 against 2.4 ms.)"""
+    thread t owns the contiguous columns t*cols .. t*cols+cols-1; one column
+    per thread up to 512 columns, else 4 columns per thread (<= 512
+    threads), else 8 (<= 1024 threads).  The kernel is instantiated for
+    exactly these column counts.  (A 2-column build spilled 1 KB per thread
+    under ptxas for sm_90a and ran the 1080 chroma launch 5x slower than 4
+    columns on an H100: 12.0 against 2.4 ms.)"""
     for cols, max_threads in ((1, 512), (4, 512), (8, 1024)):
         n = -(-S // cols)
         if n <= max_threads:
             return cols, max(32, -(-n // 32) * 32)
     raise ValueError(f"plane too wide for the CUDA kernel: {S} smoothed columns "
                      "(at most 8192)")
+
+
+class LaunchPlan(NamedTuple):
+    """How one launch lays out its memory (see ``csrc/deint.cu``).
+
+    ``route``: "double" (two shared smoothing buffers, one barrier a row
+    step), "single" (one shared buffer, two barriers) or "global" (buffer and
+    raw slices in global scratch, two barriers).  ``pitch_b``: elements of a
+    smoothing-buffer row (4 pad columns, S, and the right pad);
+    ``pitch_r``: of a kept-row ring row; ``pitch_p``: of a raw-slice row.
+    ``smem_bytes``: the dynamic shared memory the launch asks for."""
+
+    cols: int
+    threads: int
+    route: str
+    smem_bytes: int
+    pitch_b: int
+    pitch_r: int
+    pitch_p: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def launch_plan(w: int, S: int, elem: int, limit: int) -> LaunchPlan:
+    """The launch plan for a plane of width ``w``, ``S`` smoothed columns
+    and ``elem``-byte samples under a block's shared-memory ``limit``: the
+    first route whose shared memory fits, in the order double, single,
+    global.  Raises ValueError if not even the kept-row ring fits."""
+    cols, threads = launch_shape(S)
+    pitch_b = _round_up(S + cols + 8, 4)
+    pitch_r = _round_up(w + cols + 8, 16)
+    pitch_p = _round_up(threads * cols, 16)
+    buf = _MAPS * pitch_b * 4
+    rp = _MAPS * pitch_p * elem
+    ring = _RING_ROWS * pitch_r * elem
+    for route, smem in (("double", 2 * buf + rp + ring), ("single", buf + rp + ring),
+                        ("global", ring)):
+        if smem <= limit:
+            return LaunchPlan(cols, threads, route, smem, pitch_b, pitch_r, pitch_p)
+    raise ValueError(f"deint kernel: plane width {w} exceeds shared memory")
 
 
 def _storage_dtype(spec: KernelSpec) -> torch.dtype:
@@ -183,22 +229,14 @@ def _launch(src: torch.Tensor, out: torch.Tensor, spec: KernelSpec, aaf,
     if stride < w:
         raise ValueError(f"deint kernel: stride {stride} < width {w}")
     _, _, S = width_tiers(w, bufH, stride, spec)
-    cols, threads = launch_shape(S)
     lib = _load()
-    elem = src.element_size()
-    ring_bytes = 4 * w * elem
-    sm_bytes = _MAPS * S * 4
-    limit = _max_smem_bytes(lib, device)
-    gsm = None
-    if sm_bytes + ring_bytes <= limit:
-        smem = sm_bytes + ring_bytes
-    elif ring_bytes <= limit:
-        # too wide for shared memory: smoothed rows live in global scratch
-        gsm = torch.empty((n_fields, _MAPS, S), dtype=spec.acc_dtype,
+    plan = launch_plan(w, S, src.element_size(), _max_smem_bytes(lib, device))
+    gbuf = grp = None
+    if plan.route == "global":
+        gbuf = torch.empty((n_fields, _MAPS, plan.pitch_b), dtype=spec.acc_dtype,
+                           device=device)
+        grp = torch.empty((n_fields, _MAPS, plan.pitch_p), dtype=src.dtype,
                           device=device)
-        smem = ring_bytes
-    else:
-        raise ValueError(f"deint kernel: plane width {w} exceeds shared memory")
     offs = None
     if isinstance(offset, int):
         if offset not in (0, 1):
@@ -214,12 +252,15 @@ def _launch(src: torch.Tensor, out: torch.Tensor, spec: KernelSpec, aaf,
     in_frame_stride = src.shape[1] * w
     with torch.cuda.device(device):
         err = lib.sno_deint_launch(
-            _DTYPE_CODE[src.dtype], int(spec.sse2 and not spec.is_float), cols,
+            _DTYPE_CODE[src.dtype], int(spec.sse2 and not spec.is_float), plan.cols,
             src.data_ptr(), out.data_ptr(),
             None if offs is None else offs.data_ptr(),
-            None if gsm is None else gsm.data_ptr(),
-            n_fields, bufH, w, S, in_frame_stride, interlaced, int(weave),
-            static_offset, float(aaf), threads, smem, stream,
+            None if gbuf is None else gbuf.data_ptr(),
+            None if grp is None else grp.data_ptr(),
+            n_fields, bufH, w, S, plan.pitch_b, plan.pitch_r, plan.pitch_p,
+            in_frame_stride, interlaced, int(weave), static_offset,
+            int(plan.route == "double"), float(aaf), plan.threads,
+            plan.smem_bytes, stream,
         )
     _check(lib, err, "deint kernel launch")
     LAUNCHES += 1

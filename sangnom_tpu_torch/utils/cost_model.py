@@ -135,26 +135,30 @@ MEASURED_OP_RATES = {
 
 # Operations of one row step of csrc/deint.cu per column, in the
 # calibration's classes (1080 luma: the active and smoothed widths are both
-# the 1920 columns).  Each tap read from a neighbouring thread's column
-# counts as roll; the box's and the pixels' tap index clamps are counted
-# once each (the compiler shares them across maps and pairs); loads and
-# stores of the thread's own column are not counted.
-#   vertical phase, error maps of two kept pairs (the kernel recomputes the
-#     pair it prepared a step earlier): per pair 12 neighbour taps (roll),
-#     4 predictors (2 add, 1 mul, x4 shift + >>3 + mask = 3 shift_and), 9
-#     absolute differences (1 add + 1 abs counted as min); then the
-#     vertical 3-sum, 9 maps x 2 adds
-#   box phase: 9 maps x (6 neighbour taps, 6 adds, writeback >>4 and mask)
-#   finalize: 12 neighbour taps, the 4 predictors again, the 8-min tree,
-#     8 equality selects of two operands (3 ops each) and the vertical /
+# the 1920 columns; a thread owns 4 contiguous columns).  Each value that
+# enters a thread's registers from a neighbouring thread's columns through
+# shared memory counts as roll: a 12-value window for 4 columns brings 8,
+# so 2 a column.  Loads and stores of the thread's own columns are not
+# counted.
+#   row b+1: its window from the kept-row ring (2 roll, 3 shift_and to
+#     unpack 12 u8 values for 4 columns), its 2 mirror predictors (2 add, 1
+#     mul, x4 shift + >>3 + mask = 3 shift_and each); pair (b-1, b) and its
+#     predictors are carried, not recomputed
+#   raw[b+1]: 9 absolute differences (1 add + 1 abs counted as min); the
+#     vertical sum, 9 maps x 2 adds (acc + raw[b+1] before the barrier,
+#     sm[b] + raw[b+1] after it); raw[b+1] through the u8 raw slice, 9
+#     packs and 9 unpacks (shift_and)
+#   box: 9 maps x (2 roll for the window, 6 adds, writeback >>4 and mask)
+#   finalize: taps and predictors from the carry; the 8-min tree, 8
+#     equality selects of two operands (3 ops each) and the vertical /
 #     threshold select (5), the average (2 add, shift, mask)
-#   index clamps: 7 pixel taps and 7 box taps, min + max each
+#   no index clamps: the rows carry replicated edge pads
 STEP_OP_CLASSES = {
-    "roll": 2 * 12 + 9 * 6 + 12,                  # 90
-    "add": 2 * (8 + 9) + 18 + 9 * 6 + 8 + 2,      # 116
-    "mul": 2 * 4 + 4,                             # 12
-    "min": 2 * 9 + 8 + 2 * 14,                    # 54
-    "shift_and": 2 * 12 + 9 * 2 + 12 + 2,         # 56
+    "roll": 2 + 9 * 2,                            # 20
+    "add": 2 * 2 + 9 + 18 + 9 * 6 + 2,            # 87
+    "mul": 2,                                     # 2
+    "min": 9 + 8,                                 # 17
+    "shift_and": 3 + 2 * 3 + 18 + 9 * 2 + 2,      # 47
     "where": 8 * 3 + 5,                           # 29
 }
 

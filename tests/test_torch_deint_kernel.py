@@ -126,13 +126,61 @@ def test_cpu_wrappers_do_not_launch():
 
 
 def test_launch_shape_covers_width():
-    for S in (1, 31, 512, 513, 1024, 1920, 2048, 2049, 4096, 8192):
+    for S in (1, 5, 31, 61, 512, 513, 1023, 1024, 1920, 2048, 2049, 3840, 4096, 8192):
         cols, threads = dk.launch_shape(S)
-        assert cols in (1, 4, 8)
+        assert cols == (1 if S <= 512 else 4 if S <= 2048 else 8)
+        # contiguous groups t*cols .. t*cols+cols-1 cover S; no idle warp
         assert cols * threads >= S and threads % 32 == 0
+        assert (threads - 32) * cols < S
         assert threads <= (1024 if cols == 8 else 512)
     with pytest.raises(ValueError, match="too wide"):
         dk.launch_shape(8193)
+
+
+LIMIT = 227 * 1024  # the H100's opt-in shared memory a block, 232448 bytes
+
+# S -> route for u8, u16, f32 (w = S), and the bytes of each route:
+# 2 * buf + raw slice + ring, buf + raw slice + ring, or the ring alone.
+PLAN_ROUTES = {
+    61: ("double", "double", "double"),
+    1024: ("double", "double", "double"),
+    1920: ("double", "double", "single"),
+    3840: ("single", "global", "global"),
+    6200: ("global", "global", "global"),
+}
+
+
+@pytest.mark.parametrize("S", sorted(PLAN_ROUTES))
+@pytest.mark.parametrize("elem", [1, 2, 4])
+def test_launch_plan_route_and_bytes(S, elem):
+    plan = dk.launch_plan(S, S, elem, LIMIT)
+    cols, threads = dk.launch_shape(S)
+    assert (plan.cols, plan.threads) == (cols, threads)
+    assert plan.route == PLAN_ROUTES[S][{1: 0, 2: 1, 4: 2}[elem]]
+    # pitches: 4 left pads, the right pads, 16-byte rows
+    assert plan.pitch_b >= S + cols + 8 and plan.pitch_b % 4 == 0
+    assert plan.pitch_r >= S + cols + 8 and plan.pitch_r % 16 == 0
+    assert plan.pitch_p >= threads * cols and plan.pitch_p % 16 == 0
+    buf = 9 * plan.pitch_b * 4
+    rp = 9 * plan.pitch_p * elem
+    ring = 4 * plan.pitch_r * elem
+    want = {"double": 2 * buf + rp + ring, "single": buf + rp + ring,
+            "global": ring}[plan.route]
+    assert plan.smem_bytes == want <= LIMIT
+    if plan.route != "double":  # the plan takes the first route that fits
+        assert 2 * buf + rp + ring > LIMIT
+    if plan.route == "global":
+        assert buf + rp + ring > LIMIT
+
+
+def test_launch_plan_main_path_bytes():
+    # the 1080 bob's launches: luma S = 1920, U/V S = 1024 (w 960), u8
+    assert dk.launch_plan(1920, 1920, 1, LIMIT) == dk.LaunchPlan(
+        4, 480, "double", 164128, 1932, 1936, 1920)
+    assert dk.launch_plan(960, 1024, 1, LIMIT) == dk.LaunchPlan(
+        4, 256, "double", 87712, 1036, 976, 1024)
+    with pytest.raises(ValueError, match="exceeds shared memory"):
+        dk.launch_plan(8000, 8000, 4, 64 * 1024)
 
 
 # --- on the card -----------------------------------------------------------
@@ -144,6 +192,8 @@ def cuda():
     return torch.device("cuda")
 
 
+UNPADDED = (1023, 5)
+
 CUDA_FORMATS = [("GRAY8", False), ("GRAY8", True), ("GRAY16", False),
                 ("GRAY16", True), ("YUV420P10", False), ("YUV420P10", True),
                 ("GRAYS", False)]
@@ -153,7 +203,7 @@ CUDA_FORMATS = [("GRAY8", False), ("GRAY8", True), ("GRAY16", False),
 @pytest.mark.parametrize("fmt_name,sse2", CUDA_FORMATS, ids=str)
 @pytest.mark.parametrize("offset", [0, 1, "pf"])
 @pytest.mark.parametrize("tff", [None, True, False])
-@pytest.mark.parametrize("w", [61, 1920])
+@pytest.mark.parametrize("w", [61, 1920, 3840, 1023, 5])
 def test_kernel_matches_plain_on_card(cuda, fmt_name, sse2, offset, tff, w):
     fmt = get_format(fmt_name)
     rng = np.random.default_rng(w)
@@ -165,7 +215,9 @@ def test_kernel_matches_plain_on_card(cuda, fmt_name, sse2, offset, tff, w):
     if not isinstance(off, int):
         off = off.to(cuda)
     spec = KernelSpec.from_format(fmt, sse2=sse2)
-    stride = -(-w // 32) * 32
+    # 1023 and 5 unpadded: S not a multiple of 4, and a plane below the
+    # 7-tap span; 3840 takes the single-buffer route (u8) or global scratch
+    stride = w if w in UNPADDED else -(-w // 32) * 32
     before = dk.LAUNCHES
     got = dk.deinterlace_field_batch_fused(src, off, _aaf(fmt), spec, stride,
                                            interlaced_tff=tff)
@@ -186,6 +238,10 @@ def test_kernel_matches_plain_on_card(cuda, fmt_name, sse2, offset, tff, w):
     (150, 5, 40, 64),        # more fields than the card has SMs
     (2, 4, 6200, 6208),      # smoothed rows too wide for shared memory
     (2, 1, 16, 32),          # one kept row: weave only
+    (2, 6, 3840, 3840),      # 4K luma: one shared buffer, two barriers
+    (3, 7, 1023, 1023),      # S = 1023: the last thread owns 3 columns
+    (4, 6, 5, 5),            # narrower than the 7-tap span
+    (2, 2, 700, 700),        # two kept rows: one step, no row ahead
 ], ids=str)
 def test_kernel_shapes_on_card(cuda, n, bufH, w, stride):
     fmt = get_format("GRAY8")
