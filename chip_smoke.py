@@ -9,7 +9,8 @@ Drives the main path at full 1080 size: the 1080i YUV420P8 bob (60
 interlaced frames -> 120) and the single-rate ``sangnom2(order=1, dh=True)``
 on 120 fields of 1920x540.  Then the pool_compat path: the 1080i bob with
 ``pool_compat=True`` (16 interlaced frames -> 32) and 30 frames of 720x480
-YUV420P8, through each pool kernel (K3, and the K6 / K7 options).  Then the
+YUV420P8, through each pool kernel arm (K3, K6, and K7: the prepare kernel,
+the K6 walk and the finalize kernel).  Then the
 width-sharded path: ``parallel.sangnom2_sharded`` on meshes of the one card
 (1x4 through K4 and through K5, 2x2 through K4) on the 1080 dh call and the
 woven 1080i bob, held bit-equal to the single-device kernel path.  Checks
@@ -95,6 +96,20 @@ def pool_fused_work(P: int, S: int, bufH_p: int, w: int, elem: int = 1):
     return nbytes, ops
 
 
+def pool_prepare_work(bufH_p: int, w: int, elem: int = 1):
+    """(bytes, ops) of one K7 prepare launch: the kept rows read, 9 int32
+    maps of the R = bufH_p-1 pairs written."""
+    R = bufH_p - 1
+    return bufH_p * w * elem + 9 * 4 * R * w, R * w * OPS_PREPARE
+
+
+def pool_finalize_work(bufH_p: int, w: int, elem: int = 1):
+    """(bytes, ops) of one K7 finalize launch: the kept rows and 9 smoothed
+    int32 maps of R rows read, R interpolated rows written."""
+    R = bufH_p - 1
+    return bufH_p * w * elem + 9 * 4 * R * w + R * w * elem, R * w * OPS_FINALIZE
+
+
 def _rand_plane(rng, shape, fmt):
     """Full-range samples, out-of-nominal codes included for >8-bit formats."""
     if fmt.is_float:
@@ -165,9 +180,11 @@ def _on_split(plane_pass, kept, pool, aaf, spec):
 def phase_pool_matrix(get_format, KernelSpec, details):
     """K3, K6 and K7 vs their plain twins on CUDA tensors: formats and
     numerics x pool strides 64/736/1920 x plane shapes (luma covering the
-    pool, unaligned luma, chroma with R < P-1 and w < S, a degenerate
-    plane), on pools holding stale content from two plain passes; the
-    interpolated rows and the whole pool bit-equal."""
+    pool, unaligned luma, chroma with R < P-1 and w < S, a plane narrower
+    than the 7-tap span, a degenerate plane), on pools holding stale
+    content from two plain passes; the interpolated rows and the whole pool
+    bit-equal.  K7 also on kept rows read in place (the odd rows of a
+    frame), and its prepare and finalize kernels each against their twins."""
     from sangnom_tpu_torch.core.geometry import aaf_as_pixel, scaled_aa_thresholds
     from sangnom_tpu_torch.ops import pool_carry as pc
     from sangnom_tpu_torch.ops import pool_kernel as pk
@@ -190,8 +207,10 @@ def phase_pool_matrix(get_format, KernelSpec, details):
                 pc.interp_field_pool(kept, pool, aaf_y, spec)
             if not bool(pool[:, 1:P].any()):
                 raise AssertionError(f"stale pool is zero: {fmt_name} S={S}")
-            for rows, w in ((P, S), (P, S - 16), (P // 2 - 1, S // 2 - 8), (1, S // 2)):
-                kept = torch.from_numpy(_rand_plane(rng, (rows, w), fmt)).to(DEVICE)
+            for rows, w in ((P, S), (P, S - 16), (P // 2 - 1, S // 2 - 8), (7, 5),
+                            (1, S // 2)):
+                frame = torch.from_numpy(_rand_plane(rng, (2 * rows, w), fmt)).to(DEVICE)
+                kept, strided = frame[0::2].contiguous(), frame[0::2]
                 aaf = aaf_y if rows == P else aaf_c
                 want_pool = pool.clone()
                 want = pc.interp_field_pool(kept, want_pool, aaf, spec)
@@ -199,6 +218,8 @@ def phase_pool_matrix(get_format, KernelSpec, details):
                     ("K3", lambda p: (pc.interp_field_pool_k3(kept, p, aaf, spec), p)),
                     ("K6", lambda p: _on_split(pc.interp_field_pool_split3, kept, p, aaf, spec)),
                     ("K7", lambda p: _on_split(pc.interp_field_pool_fused, kept, p, aaf, spec)),
+                    ("K7 strided", lambda p: _on_split(pc.interp_field_pool_fused, strided, p,
+                                                       aaf, spec)),
                 )
                 for name, run in arms:
                     before = dict(pk.LAUNCHES)
@@ -220,6 +241,18 @@ def phase_pool_matrix(get_format, KernelSpec, details):
                 if not torch.equal(a, b):
                     raise AssertionError(f"K3 alone != twin: {fmt_name} {numerics} S={S}")
                 cases += 1
+                if rows >= 2:  # K7's prepare and finalize kernels alone
+                    body = pc._pool_split(pool)[1]
+                    a, b = body.clone(), body.clone()
+                    pk.prepare_pool_(strided, a, spec)
+                    pk.prepare_pool_plain_(strided, b, spec)
+                    got = pk.finalize_pool(strided, body, aaf, spec)
+                    want = pk.finalize_pool_plain(strided, body, aaf, spec)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(a, b) and torch.equal(got, want)):
+                        raise AssertionError(f"K7 prepare or finalize != twin: {fmt_name} "
+                                             f"{numerics} S={S} kept {rows}x{w}")
+                    cases += 2
                 pool = want_pool
     details["pool_matrix_cases"] = cases
     return cases
@@ -236,13 +269,23 @@ def pool_inputs():
     return hd, sd
 
 
+POOL_ARMS = {"K3": (False, False), "K6": (True, False), "K7": (False, True)}  # flags
+
+
+def default_pool_arm(pc) -> str:
+    """The arm the module's flags pick for CUDA tensors."""
+    return "K7" if pc.POOL_FUSED else "K6" if pc.POOL_SPLIT3 else "K3"
+
+
 def phase_pool_main_path(fmt, clip_hd, clip_sd, details):
     """The pool_compat path through the entry points, once per kernel arm
-    (K3 default, K6, K7), each with the launch counts set to 0 just before
-    and read just after; outputs and final pools bit-equal to opt=0,
-    chunked streams equal to the whole clip, the first 2 frames equal to
-    the native oracle with a carried pool.  Returns (launches per kernel,
-    the K3 bob's final pool)."""
+    (K3, K6, K7), each with the launch counts set to 0 just before and read
+    just after, and held to their formula (one K3 or K6 launch a plane pass;
+    three for K7: prepare, the K6 walk, finalize); outputs and final pools
+    bit-equal to opt=0, chunked streams equal to the whole clip, the first 2
+    frames equal to the native oracle with a carried pool.  The module's
+    flags are restored after each arm.  Returns (launches per arm and
+    kernel, the bob's final pool)."""
     from sangnom_tpu_torch import Clip, bob, sangnom2
     from sangnom_tpu_torch.core.fields import double_weave, separate_fields
     from sangnom_tpu_torch.ops import pool_carry as pc
@@ -260,20 +303,21 @@ def phase_pool_main_path(fmt, clip_hd, clip_sd, details):
     }
     n_hd, n_sd = clip_hd.num_frames, clip_sd.num_frames
     passes = 2 * n_hd * 3 + n_sd * 3 + n_sd * 2  # plane passes of the three calls
+    formula = {"K3": {"smooth": passes}, "K6": {"split3": passes},
+               "K7": {"prepare": passes, "split3": passes, "finalize": passes}}
     ref = {}
     for name, (_, c, kw) in calls.items():
         ref[name] = stream(c, None, opt=0, **kw)
     launches, outs = {}, {}
-    for arm, key, flags in (("K3", "smooth", (False, False)),
-                            ("K6", "split3", (True, False)),
-                            ("K7", "fused", (False, True))):
+    defaults = pc.POOL_SPLIT3, pc.POOL_FUSED  # restored after each arm
+    for arm, flags in POOL_ARMS.items():
         pc.POOL_SPLIT3, pc.POOL_FUSED = flags
         try:
             torch.cuda.synchronize()
             pk.reset_launches()
             outs = {name: call() for name, (call, _, _) in calls.items()}
             torch.cuda.synchronize()
-            launches[key] = pk.LAUNCHES[key]
+            launches[arm] = dict(pk.LAUNCHES)
             for name, (_, c, kw) in calls.items():
                 out, pool = stream(c, None, **kw)
                 want, want_pool = ref[name]
@@ -284,10 +328,12 @@ def phase_pool_main_path(fmt, clip_hd, clip_sd, details):
                 if not torch.equal(pool, want_pool):
                     raise AssertionError(f"{arm} {name}: final pool != opt=0")
         finally:
-            pc.POOL_SPLIT3 = pc.POOL_FUSED = False
-        if launches[key] != passes:
-            raise AssertionError(f"{arm}: {launches[key]} launches, {passes} passes")
-    # chunked streams == the whole clip (K3)
+            pc.POOL_SPLIT3, pc.POOL_FUSED = defaults
+        want_counts = {k: formula[arm].get(k, 0) for k in launches[arm]}
+        if launches[arm] != want_counts:
+            raise AssertionError(f"{arm}: launches {launches[arm]}, formula {want_counts} "
+                                 f"for {passes} plane passes")
+    # chunked streams == the whole clip (the default arm)
     for name, (_, c, kw) in calls.items():
         k = c.num_frames // 2 - 1
         a, pool = stream(c[0:k], None, **kw)
@@ -317,16 +363,17 @@ def phase_pool_main_path(fmt, clip_hd, clip_sd, details):
 
 def phase_pool_timing(fmt, clip_hd, clip_sd, hd_pool, card, details):
     """ms per output frame of the pool_compat calls per kernel arm, in
-    turns, the arms' outputs equal (1080i bob, 720p and 720x480: where K3
-    and K7 cross over); ms per launch of each pool kernel and its twin at the 1080 luma
-    and chroma passes; the plain path on a 2-frame prefix."""
+    turns, the arms' outputs equal (1080i bob, 720p and 720x480); ms per
+    launch of each pool kernel and its twin at the 1080 luma and chroma
+    passes (kept rows read in place, as the bob reads them); the plain path
+    on a 2-frame prefix; profiles of the bob through K3 and of each call
+    through the default arm."""
     from sangnom_tpu_torch import Clip, bob, sangnom2
     from sangnom_tpu_torch.core.geometry import aaf_as_pixel, scaled_aa_thresholds
     from sangnom_tpu_torch.ops import pool_carry as pc
     from sangnom_tpu_torch.ops import pool_kernel as pk
     from sangnom_tpu_torch.ops.primitives import KernelSpec
 
-    arms = {"K3": (False, False), "K6": (True, False), "K7": (False, True)}
     rng = np.random.default_rng(9)  # 720p, between the two checked sizes
     clip_720 = Clip.from_numpy([rng.integers(0, 256, (N_720, h, w)).astype(np.uint8)
                                 for h, w in ((720, 1280), (360, 640), (360, 640))],
@@ -337,11 +384,13 @@ def phase_pool_timing(fmt, clip_hd, clip_sd, hd_pool, card, details):
         "sd480": (lambda: sangnom2(clip_sd, order=1, pool_compat=True), clip_sd.num_frames),
     }
     e2e: dict = {}
-    first: dict = {}  # workload -> K3's output, which every arm must equal
+    first: dict = {}  # workload -> the first arm's output, which every arm must equal
+    defaults = pc.POOL_SPLIT3, pc.POOL_FUSED  # restored after each arm
+    default_arm = default_pool_arm(pc)
     try:
-        for rnd in (list(arms), list(arms)[::-1]):
+        for rnd in (list(POOL_ARMS), list(POOL_ARMS)[::-1]):
             for arm in rnd:
-                pc.POOL_SPLIT3, pc.POOL_FUSED = arms[arm]
+                pc.POOL_SPLIT3, pc.POOL_FUSED = POOL_ARMS[arm]
                 for wl, (fn, frames) in calls.items():
                     out = fn()  # warm-up
                     want = first.setdefault(wl, out)
@@ -349,7 +398,7 @@ def phase_pool_timing(fmt, clip_hd, clip_sd, hd_pool, card, details):
                         raise AssertionError(f"{wl}: arm {arm} != the first arm's output")
                     e2e.setdefault(f"{wl}/{arm}", []).append(cuda_ms(fn, 2) / frames)
     finally:
-        pc.POOL_SPLIT3 = pc.POOL_FUSED = False
+        pc.POOL_SPLIT3, pc.POOL_FUSED = defaults
     del first
     plain = {
         "bob1080": cuda_ms(lambda: bob(clip_hd[0:1], pool_compat=True, opt=0), 1) / 2,
@@ -359,10 +408,14 @@ def phase_pool_timing(fmt, clip_hd, clip_sd, hd_pool, card, details):
     for k, ts in e2e.items():
         log(f"[8 pool timing] {k}: {min(ts):.4f} ms/output frame -> "
             f"{1e3 / min(ts):.1f} frames/s (windows {', '.join(f'{t:.4f}' for t in ts)}) | {card}")
+    for wl in calls:
+        best = min(POOL_ARMS, key=lambda arm: min(e2e[f"{wl}/{arm}"]))
+        log(f"[8 pool timing] {wl}: fastest arm {best}; default arm {default_arm}")
     for k, t in plain.items():
         log(f"[8 pool timing] {k}/plain (opt=0, 2-frame prefix): {t:.3f} ms/output frame | {card}")
     details["pool_e2e_ms_per_frame"] = e2e
     details["pool_plain_ms_per_frame"] = plain
+    details["pool_default_arm"] = default_arm
 
     # each kernel alone at the 1080 passes, on the bob's stale final pool
     spec = KernelSpec.from_format(fmt)
@@ -370,8 +423,8 @@ def phase_pool_timing(fmt, clip_hd, clip_sd, hd_pool, card, details):
     P, S = hd_pool.shape[1] - 1, hd_pool.shape[2]
     field = clip_hd.planes
     passes = {
-        "luma": (field[0][0, 0::2].contiguous(), aaf_as_pixel(aafs[0], fmt)),
-        "chroma": (field[1][0, 0::2].contiguous(), aaf_as_pixel(aafs[1], fmt)),
+        "luma": (field[0][0, 0::2], aaf_as_pixel(aafs[0], fmt)),
+        "chroma": (field[1][0, 0::2], aaf_as_pixel(aafs[1], fmt)),
     }
     per: dict = {}
     for pname, (kept, aaf) in passes.items():
@@ -379,6 +432,7 @@ def phase_pool_timing(fmt, clip_hd, clip_sd, hd_pool, card, details):
         prepared = hd_pool.clone()
         pc._prepare(kept, prepared[:, 1:bufH_p, :w], spec)
         carry = pc._pool_split(prepared)
+        body = pc._pool_split(hd_pool)[1]
         kernels = {
             "K3": (lambda p=prepared.clone(): pk.smooth_pool_(p, spec),
                    lambda p=prepared.clone(): pk.smooth_pool_plain_(p, spec),
@@ -392,6 +446,15 @@ def phase_pool_timing(fmt, clip_hd, clip_sd, hd_pool, card, details):
                    pk.interp_fused_plain(kept, *c, aaf, spec),
                    lambda: _k7_err(pk, pc, hd_pool, kept, aaf, spec),
                    pool_fused_work(P, S, bufH_p, w)),
+            "prepare": (lambda b=body.clone(): pk.prepare_pool_(kept, b, spec),
+                        lambda b=body.clone(): pk.prepare_pool_plain_(kept, b, spec),
+                        lambda: _prepare_err(pk, body, kept, spec),
+                        pool_prepare_work(bufH_p, w)),
+            "finalize": (lambda: pk.finalize_pool(kept, body, aaf, spec),
+                         lambda: pk.finalize_pool_plain(kept, body, aaf, spec),
+                         lambda: max_abs(pk.finalize_pool(kept, body, aaf, spec),
+                                         pk.finalize_pool_plain(kept, body, aaf, spec)),
+                         pool_finalize_work(bufH_p, w)),
         }
         for kname, (kern, twin, err, work) in kernels.items():
             kern()  # warm-up
@@ -403,11 +466,19 @@ def phase_pool_timing(fmt, clip_hd, clip_sd, hd_pool, card, details):
             log(f"[8 pool timing] {kname} at the 1080 {pname} pass (pool 9x{P + 1}x{S}, "
                 f"kept {bufH_p}x{w}): {min(k_ms):.4f} ms/launch (windows "
                 f"{', '.join(f'{t:.4f}' for t in k_ms)}), twin {p_ms:.3f} ms, bound "
-                f"{b_ms:.4f} ms ({b_by}), {P - 1} serial row steps | {card}")
+                f"{b_ms:.4f} ms ({b_by}) | {card}")
     details["pool_kernel_ms"] = per
-    details["pool_profile"] = profile_call(lambda: bob(clip_hd, pool_compat=True),
-                                           min(e2e["bob1080/K3"]) * 2 * clip_hd.num_frames,
-                                           "bob1080/K3", card)
+    profiles = {}  # the K3 bob, then each call through the default arm
+    for wl, arm in dict.fromkeys([("bob1080", "K3")] + [(wl, default_arm) for wl in calls]):
+        fn, frames = calls[wl]
+        pc.POOL_SPLIT3, pc.POOL_FUSED = POOL_ARMS[arm]
+        try:
+            profiles[f"{wl}/{arm}"] = profile_call(
+                fn, min(e2e[f"{wl}/{arm}"]) * frames,
+                f"{wl}/{arm}" + (" (default)" if arm == default_arm else ""), card)
+        finally:
+            pc.POOL_SPLIT3, pc.POOL_FUSED = defaults
+    details["pool_profile"] = profiles
     return per
 
 
@@ -415,12 +486,20 @@ def profile_call(fn, wall_ms: float, what: str, card: str,
                  tag: str = "8 pool profile") -> dict:
     """Device time of one call of ``fn`` by torch.profiler, against
     ``wall_ms``, its time by CUDA events without the profiler: the device's
-    busy and idle share, and the kernels that take the most device time."""
+    busy and idle share, and the kernels that take the most device time.
+    Also the host time of a call: from its start until it returns, before
+    the device is waited for (best of 3)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
+    host_ms = min(host)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -432,15 +511,16 @@ def profile_call(fn, wall_ms: float, what: str, card: str,
     busy = sum(r[2] for r in rows)
     if not busy:
         log(f"[{tag}] {what}: the profiler traced no device time; "
-            f"busy share not measured")
-        return {}
+            f"busy share not measured; host {host_ms:.3f} ms per call")
+        return {"host_ms": host_ms}
     rows.sort(key=lambda r: -r[2])
     top = [(k[:60], n, round(ms, 4)) for k, n, ms in rows[:6]]
     log(f"[{tag}] {what}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
-        f"per call (idle share {1 - busy / wall_ms:.3f}), {sum(r[1] for r in rows)} "
-        f"kernel launches; top (name, launches, ms): {top} | {card}")
-    return {"busy_ms": busy, "wall_ms": wall_ms, "launches": sum(r[1] for r in rows),
-            "top": top}
+        f"per call (idle share {1 - busy / wall_ms:.3f}), host {host_ms:.3f} ms per "
+        f"call, {sum(r[1] for r in rows)} kernel launches; top (name, launches, ms): "
+        f"{top} | {card}")
+    return {"busy_ms": busy, "wall_ms": wall_ms, "host_ms": host_ms,
+            "launches": sum(r[1] for r in rows), "top": top}
 
 
 def _k3_err(pk, pool, spec) -> float:
@@ -455,6 +535,13 @@ def _k6_err(pk, carry, spec) -> float:
     pk.smooth_split3_(*a, spec)
     pk.smooth_split3_plain_(*b, spec)
     return max(max_abs(x, y) for x, y in zip(a, b))
+
+
+def _prepare_err(pk, body, kept, spec) -> float:
+    a, b = body.clone(), body.clone()
+    pk.prepare_pool_(kept, a, spec)
+    pk.prepare_pool_plain_(kept, b, spec)
+    return max_abs(a, b)
 
 
 def _k7_err(pk, pc, pool, kept, aaf, spec) -> float:
@@ -1093,9 +1180,10 @@ def main() -> int:
     t0 = time.perf_counter()
     cases = phase_pool_matrix(get_format, KernelSpec, details)
     log(f"[6 pool kernels vs plain] {cases} cases bit-equal on the card, rows "
-        f"and whole pool (K3, K6, K7; u8/u16/10-bit/f32, c/sse2, strides "
-        f"64/736/1920, luma/unaligned/chroma/degenerate planes on stale "
-        f"pools; K3 alone) in {time.perf_counter() - t0:.1f} s")
+        f"and whole pool (K3, K6, K7 on contiguous and strided kept rows; "
+        f"u8/u16/10-bit/f32, c/sse2, strides 64/736/1920, luma/unaligned/"
+        f"chroma/5-wide/degenerate planes on stale pools; K3, K7 prepare and "
+        f"K7 finalize alone) in {time.perf_counter() - t0:.1f} s")
 
     # 7. the pool_compat main path, once per kernel arm
     t0 = time.perf_counter()
@@ -1164,16 +1252,22 @@ def main() -> int:
         "bound_by": dk_by,
         "library_ms": None,
     }]
-    for key, name, replaces in (
-        ("K3", "pool_smooth_kernel (K3)", "sangnom_tpu/ops/pool_carry.py:63"),
-        ("K6", "pool_smooth_kernel, split3 entry (K6)", "sangnom_tpu/ops/pool_carry.py:268"),
-        ("K7", "pool_fused_kernel (K7)", "sangnom_tpu/ops/pool_carry.py:178"),
+    for key, name, replaces, arm, count in (
+        ("K3", "pool_smooth_kernel (K3)", "sangnom_tpu/ops/pool_carry.py:63", "K3", "smooth"),
+        ("K6", "pool_smooth_kernel, split3 entry (K6; the walk of a K7 pass)",
+         "sangnom_tpu/ops/pool_carry.py:268", "K6", "split3"),
+        ("prepare", "pool_prepare_kernel (K7 pass, 1 of 3)",
+         "sangnom_tpu/ops/pool_carry.py:178", "K7", "prepare"),
+        ("finalize", "pool_finalize_kernel (K7 pass, 3 of 3)",
+         "sangnom_tpu/ops/pool_carry.py:178", "K7", "finalize"),
+        ("K7", "K7 pass: pool_prepare_kernel, pool_smooth_kernel (split3 entry), "
+         "pool_finalize_kernel", "sangnom_tpu/ops/pool_carry.py:178", "K7", "prepare"),
     ):
         m = pool_ms[f"{key}/luma"]
         kernels.append({
             "name": name, "route": "cuda", "source": POOL_SOURCE,
             "replaces": replaces,
-            "launches": pool_launches[{"K3": "smooth", "K6": "split3", "K7": "fused"}[key]],
+            "launches": pool_launches[arm][count],
             "max_abs_err": max(m["max_abs_err"], pool_ms[f"{key}/chroma"]["max_abs_err"]),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,

@@ -124,16 +124,152 @@ __device__ __forceinline__ typename Ops<T, SSE2>::acc finalize(
   return O::avg(a, b);
 }
 
-// The 7-tap box sum of a smoothed row at column c, taps clamped at S,
-// summed strictly left to right, then written back.
-template <typename T, bool SSE2>
-__device__ __forceinline__ typename Ops<T, SSE2>::acc box_writeback(
-    const typename Ops<T, SSE2>::acc* row, int c, int S) {
-  using O = Ops<T, SSE2>;
-  typename O::acc s = row[max(c - 3, 0)];
+// --- Contiguous column groups and vector windows -----------------------------
+//
+// A thread that owns COLS contiguous columns c0 = tid * COLS .. c0+COLS-1
+// reads a row's taps as one window, columns c0-4 .. c0+COLS+3, from a
+// shared row that keeps kPad pad columns left of column 0 and replicated
+// values past its right edge (written by the owners of the edge columns), so
+// the window holds the clamped taps.
+
+constexpr int kPad = 4;  // pad columns left of column 0 in a shared row
+
+// Byte alignment of the group start c0 * sizeof(E) (rows start 16-byte
+// aligned) that also divides `extra` more elements: the widest word access
+// for a window (extra 8) or a group (extra 0); 0 means element access.
+template <typename E, int COLS, int EXTRA>
+__host__ __device__ constexpr int group_align() {
+  constexpr int g = COLS * static_cast<int>(sizeof(E));
+  constexpr int e = EXTRA * static_cast<int>(sizeof(E));
+  return (g % 16 == 0 && e % 16 == 0) ? 16
+         : (g % 8 == 0 && e % 8 == 0) ? 8
+         : (g % 4 == 0 && e % 4 == 0) ? 4
+                                      : 0;
+}
+
+__device__ __forceinline__ void from_word(uint32_t x, float& v) { v = __uint_as_float(x); }
+__device__ __forceinline__ void from_word(uint32_t x, int32_t& v) { v = static_cast<int32_t>(x); }
+__device__ __forceinline__ uint32_t to_word(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t to_word(int32_t v) { return static_cast<uint32_t>(v); }
+
+// N elements of E at p (aligned to ALIGN bytes) into A values.
+template <typename E, int N, int ALIGN, typename A>
+__device__ __forceinline__ void load_elems(const E* p, A out[N]) {
+  if constexpr (ALIGN == 0) {
 #pragma unroll
-  for (int k = 1; k < 7; ++k) s = O::add(s, row[min(max(c + k - 3, 0), S - 1)]);
-  return O::writeback(s);
+    for (int k = 0; k < N; ++k) out[k] = static_cast<A>(p[k]);
+  } else {
+    constexpr int NW = N * static_cast<int>(sizeof(E)) / 4;
+    uint32_t wd[NW];
+    if constexpr (ALIGN == 16) {
+      const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+      for (int i = 0; i < NW / 4; ++i) {
+        const uint4 v = q[i];
+        wd[4 * i] = v.x; wd[4 * i + 1] = v.y; wd[4 * i + 2] = v.z; wd[4 * i + 3] = v.w;
+      }
+    } else if constexpr (ALIGN == 8) {
+      const uint2* q = reinterpret_cast<const uint2*>(p);
+#pragma unroll
+      for (int i = 0; i < NW / 2; ++i) {
+        const uint2 v = q[i];
+        wd[2 * i] = v.x; wd[2 * i + 1] = v.y;
+      }
+    } else {
+      const uint32_t* q = reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+      for (int i = 0; i < NW; ++i) wd[i] = q[i];
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if constexpr (sizeof(E) == 4) {
+        E v;
+        from_word(wd[k], v);
+        out[k] = static_cast<A>(v);
+      } else {
+        constexpr int per = 4 / static_cast<int>(sizeof(E));
+        out[k] = static_cast<A>(static_cast<E>(wd[k / per] >> (8 * sizeof(E) * (k % per))));
+      }
+    }
+  }
+}
+
+// N values into N elements of E at p (aligned to ALIGN bytes).
+template <typename E, int N, int ALIGN, typename A>
+__device__ __forceinline__ void store_elems(E* p, const A v[N]) {
+  if constexpr (ALIGN == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) p[k] = static_cast<E>(v[k]);
+  } else {
+    constexpr int NW = N * static_cast<int>(sizeof(E)) / 4;
+    uint32_t wd[NW];
+#pragma unroll
+    for (int i = 0; i < NW; ++i) wd[i] = 0;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if constexpr (sizeof(E) == 4) {
+        wd[k] = to_word(static_cast<E>(v[k]));
+      } else {
+        constexpr int per = 4 / static_cast<int>(sizeof(E));
+        wd[k / per] |= static_cast<uint32_t>(static_cast<E>(v[k]))
+                       << (8 * sizeof(E) * (k % per));
+      }
+    }
+    if constexpr (ALIGN == 16) {
+      uint4* q = reinterpret_cast<uint4*>(p);
+#pragma unroll
+      for (int i = 0; i < NW / 4; ++i)
+        q[i] = make_uint4(wd[4 * i], wd[4 * i + 1], wd[4 * i + 2], wd[4 * i + 3]);
+    } else if constexpr (ALIGN == 8) {
+      uint2* q = reinterpret_cast<uint2*>(p);
+#pragma unroll
+      for (int i = 0; i < NW / 2; ++i) q[i] = make_uint2(wd[2 * i], wd[2 * i + 1]);
+    } else {
+      uint32_t* q = reinterpret_cast<uint32_t*>(p);
+#pragma unroll
+      for (int i = 0; i < NW; ++i) q[i] = wd[i];
+    }
+  }
+}
+
+// Stores the group's values v (columns c0..c0+COLS-1) into a shared row
+// whose column 0 is at row[0], then the edge pads: kPad copies of column 0
+// on the left (by the owner of column 0) and 3 copies of column S-1 past it
+// (by the owner of column S-1, after its own group store, which may have
+// written past S).
+template <typename A, int COLS>
+__device__ __forceinline__ void store_group_padded(A* row, int c0, int S, const A (&v)[COLS]) {
+  store_elems<A, COLS, group_align<A, COLS, 0>()>(row + c0, v);
+  if (c0 == 0) {
+#pragma unroll
+    for (int k = 1; k <= kPad; ++k) row[-k] = v[0];
+  }
+  if (S - 1 < c0 + COLS) {
+    A last = v[0];
+#pragma unroll
+    for (int j = 1; j < COLS; ++j)
+      if (c0 + j == S - 1) last = v[j];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) row[S + k] = last;
+  }
+}
+
+// The group's box sums from a padded shared row (column 0 at row[0]): one
+// window, each 7-tap sum strictly left to right, then written back.
+template <typename T, bool SSE2, int COLS>
+__device__ __forceinline__ void box_window(const typename Ops<T, SSE2>::acc* row, int c0,
+                                           typename Ops<T, SSE2>::acc (&h)[COLS]) {
+  using O = Ops<T, SSE2>;
+  using A = typename O::acc;
+  A x[COLS + 8];
+  load_elems<A, COLS + 8, group_align<A, COLS, 8>()>(row - kPad + c0, x);
+#pragma unroll
+  for (int j = 0; j < COLS; ++j) {
+    A s = x[j + 1];
+#pragma unroll
+    for (int k = 2; k < 8; ++k) s = O::add(s, x[j + k]);
+    h[j] = O::writeback(s);
+  }
 }
 
 }  // namespace sno

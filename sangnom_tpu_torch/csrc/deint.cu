@@ -64,106 +64,6 @@ namespace {
 
 using namespace sno;
 
-constexpr int kPad = 4;  // pad columns left of column 0 in ring and buf rows
-
-// Byte alignment of the group start c0 * sizeof(E) (rows start 16-byte
-// aligned) that also divides `extra` more elements: the widest word access
-// for a window (extra 8) or a group (extra 0); 0 means element access.
-template <typename E, int COLS, int EXTRA>
-__host__ __device__ constexpr int group_align() {
-  constexpr int g = COLS * static_cast<int>(sizeof(E));
-  constexpr int e = EXTRA * static_cast<int>(sizeof(E));
-  return (g % 16 == 0 && e % 16 == 0) ? 16
-         : (g % 8 == 0 && e % 8 == 0) ? 8
-         : (g % 4 == 0 && e % 4 == 0) ? 4
-                                      : 0;
-}
-
-__device__ __forceinline__ void from_word(uint32_t x, float& v) { v = __uint_as_float(x); }
-__device__ __forceinline__ void from_word(uint32_t x, int32_t& v) { v = static_cast<int32_t>(x); }
-__device__ __forceinline__ uint32_t to_word(float v) { return __float_as_uint(v); }
-__device__ __forceinline__ uint32_t to_word(int32_t v) { return static_cast<uint32_t>(v); }
-
-// N elements of E at p (aligned to ALIGN bytes) into A values.
-template <typename E, int N, int ALIGN, typename A>
-__device__ __forceinline__ void load_elems(const E* p, A out[N]) {
-  if constexpr (ALIGN == 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) out[k] = static_cast<A>(p[k]);
-  } else {
-    constexpr int NW = N * static_cast<int>(sizeof(E)) / 4;
-    uint32_t wd[NW];
-    if constexpr (ALIGN == 16) {
-      const uint4* q = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-      for (int i = 0; i < NW / 4; ++i) {
-        const uint4 v = q[i];
-        wd[4 * i] = v.x; wd[4 * i + 1] = v.y; wd[4 * i + 2] = v.z; wd[4 * i + 3] = v.w;
-      }
-    } else if constexpr (ALIGN == 8) {
-      const uint2* q = reinterpret_cast<const uint2*>(p);
-#pragma unroll
-      for (int i = 0; i < NW / 2; ++i) {
-        const uint2 v = q[i];
-        wd[2 * i] = v.x; wd[2 * i + 1] = v.y;
-      }
-    } else {
-      const uint32_t* q = reinterpret_cast<const uint32_t*>(p);
-#pragma unroll
-      for (int i = 0; i < NW; ++i) wd[i] = q[i];
-    }
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      if constexpr (sizeof(E) == 4) {
-        E v;
-        from_word(wd[k], v);
-        out[k] = static_cast<A>(v);
-      } else {
-        constexpr int per = 4 / static_cast<int>(sizeof(E));
-        out[k] = static_cast<A>(static_cast<E>(wd[k / per] >> (8 * sizeof(E) * (k % per))));
-      }
-    }
-  }
-}
-
-// N values into N elements of E at p (aligned to ALIGN bytes).
-template <typename E, int N, int ALIGN, typename A>
-__device__ __forceinline__ void store_elems(E* p, const A v[N]) {
-  if constexpr (ALIGN == 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) p[k] = static_cast<E>(v[k]);
-  } else {
-    constexpr int NW = N * static_cast<int>(sizeof(E)) / 4;
-    uint32_t wd[NW];
-#pragma unroll
-    for (int i = 0; i < NW; ++i) wd[i] = 0;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      if constexpr (sizeof(E) == 4) {
-        wd[k] = to_word(static_cast<E>(v[k]));
-      } else {
-        constexpr int per = 4 / static_cast<int>(sizeof(E));
-        wd[k / per] |= static_cast<uint32_t>(static_cast<E>(v[k]))
-                       << (8 * sizeof(E) * (k % per));
-      }
-    }
-    if constexpr (ALIGN == 16) {
-      uint4* q = reinterpret_cast<uint4*>(p);
-#pragma unroll
-      for (int i = 0; i < NW / 4; ++i)
-        q[i] = make_uint4(wd[4 * i], wd[4 * i + 1], wd[4 * i + 2], wd[4 * i + 3]);
-    } else if constexpr (ALIGN == 8) {
-      uint2* q = reinterpret_cast<uint2*>(p);
-#pragma unroll
-      for (int i = 0; i < NW / 2; ++i) q[i] = make_uint2(wd[2 * i], wd[2 * i + 1]);
-    } else {
-      uint32_t* q = reinterpret_cast<uint32_t*>(p);
-#pragma unroll
-      for (int i = 0; i < NW; ++i) q[i] = wd[i];
-    }
-  }
-}
-
 // A row's mirror predictors at the group's columns; window index j + 4 is
 // column c0 + j.
 template <typename O, int COLS>
@@ -248,9 +148,7 @@ deint_kernel(const T* __restrict__ src, T* __restrict__ dst,
   using A = typename O::acc;
   constexpr int L = COLS + 8;  // window: columns c0-4 .. c0+COLS+3
   constexpr int kWinT = group_align<T, COLS, 8>();
-  constexpr int kWinA = group_align<A, COLS, 8>();
   constexpr int kGrpT = group_align<T, COLS, 0>();
-  constexpr int kGrpA = group_align<A, COLS, 0>();
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int f = blockIdx.x;
@@ -379,20 +277,7 @@ deint_kernel(const T* __restrict__ src, T* __restrict__ dst,
                       ? window_map<O, COLS>(m, j, wb, pb, qb, wc, pc, qc) : A(0);
           v[j] = O::add(acc[m][j], r1[j]);
         }
-        A* row = cur + m * pitch_b + kPad;
-        store_elems<A, COLS, kGrpA>(row + c0, v);
-        if (c0 == 0) {
-#pragma unroll
-          for (int k = 1; k <= kPad; ++k) row[-k] = v[0];
-        }
-        if (S - 1 < c0 + COLS) {  // owner of column S-1: taps S .. S+2 clamp
-          A last = v[0];
-#pragma unroll
-          for (int j = 1; j < COLS; ++j)
-            if (c0 + j == S - 1) last = v[j];
-#pragma unroll
-          for (int k = 0; k < 3; ++k) row[S + k] = last;
-        }
+        store_group_padded<A, COLS>(cur + m * pitch_b + kPad, c0, S, v);
         store_elems<T, COLS, kGrpT>(rp + m * pitch_p + c0, r1);
       }
     }
@@ -403,17 +288,8 @@ deint_kernel(const T* __restrict__ src, T* __restrict__ dst,
       // Box sum from each map's window, strictly left to right.
       A h[kMaps][COLS];
 #pragma unroll
-      for (int m = 0; m < kMaps; ++m) {
-        A x[L];
-        load_elems<A, L, kWinA>(cur + m * pitch_b + c0, x);
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) {
-          A s = x[j + 1];
-#pragma unroll
-          for (int k = 2; k < 8; ++k) s = O::add(s, x[j + k]);
-          h[m][j] = O::writeback(s);
-        }
-      }
+      for (int m = 0; m < kMaps; ++m)
+        box_window<T, SSE2, COLS>(cur + m * pitch_b + kPad, c0, h[m]);
       if (kcol) {
         A res[COLS];
 #pragma unroll

@@ -24,9 +24,10 @@ copy.  Plane passes:
 
   ``interp_field_pool``       plain: prepare, ``smooth_scan``, finalize (opt=0)
   ``interp_field_pool_k3``    the same with K3 (``pool_kernel.smooth_pool_``)
-                              smoothing; the default kernel route
+                              smoothing
   ``interp_field_pool_split3``  the same with K6 on the split carry (``POOL_SPLIT3``)
-  ``interp_field_pool_fused``   K7, the whole pass in one kernel (``POOL_FUSED``)
+  ``interp_field_pool_fused``   K7, the whole pass as prepare, walk and finalize
+                                kernels (``POOL_FUSED``); the default kernel route
 
 The first three are `_pool_pass` with their own smoothing.
 
@@ -57,12 +58,14 @@ from sangnom_tpu_torch.ops.sangnom import field_offset_py
 from sangnom_tpu_torch.utils.logging import log_dispatch
 from sangnom_tpu_torch.utils.profiling import stage_scope
 
-# Kernel-route backend flags, off by default (read per call).  On the TPU
-# both were built, held bit-exact and measured slower than the default there
-# (sangnom_tpu/ops/pool_carry.py:156-175); on the GPU they are options, with
-# their times in PERF.md.  POOL_FUSED wins over POOL_SPLIT3.
+# Kernel-route arm flags (read per call).  POOL_FUSED (K7: prepare, walk
+# and finalize kernels) is the default on the GPU: an H100 runs it fastest
+# in all three pool calls of PERF.md §5 (the K3 and K6 arms issue ~150
+# tensor ops a pass from the host).  On the TPU the fused kernel was slower
+# (sangnom_tpu/ops/pool_carry.py:156-175).  POOL_FUSED wins over
+# POOL_SPLIT3; with both off the route is K3.
 POOL_SPLIT3 = False
-POOL_FUSED = False
+POOL_FUSED = True
 
 
 def init_pool(luma_width: int, luma_h_out: int, fmt: VideoFormat,
@@ -132,7 +135,7 @@ def interp_field_pool(kept: torch.Tensor, pool: torch.Tensor, aaf,
 
 def interp_field_pool_k3(kept: torch.Tensor, pool: torch.Tensor, aaf,
                          spec: KernelSpec) -> torch.Tensor:
-    """The default kernel-route plane pass (the TPU package's
+    """The K3 arm of the kernel route (the TPU package's default,
     ``interp_field_pool_tm``): `interp_field_pool` with the smoothing in K3."""
     bufH_p, w = kept.shape
     return _pool_pass(kept, pool[:, 1:bufH_p, :w],
@@ -152,17 +155,16 @@ def interp_field_pool_split3(kept: torch.Tensor, carry, aaf,
 
 def interp_field_pool_fused(kept: torch.Tensor, carry, aaf,
                             spec: KernelSpec) -> torch.Tensor:
-    """The whole plane pass in K7, on the split carry.  A degenerate plane
-    (kept field < 2 rows) only smooths, through K3, as the TPU package does
+    """The whole plane pass through K7 (prepare, walk and finalize kernels),
+    on the split carry; ``kept`` may be a strided view.  A degenerate plane
+    (kept field < 2 rows) only smooths, as the TPU package does
     (sangnom_tpu/ops/pool_carry.py:403-412)."""
     row0, body, tail = carry
     bufH_p, w = kept.shape
     if bufH_p < 2:
-        pool = _pool_join(carry)
-        pool_kernel.smooth_pool_(pool, spec)
-        body.copy_(pool[:, 1:-1])
+        pool_kernel.smooth_split3_(row0, body, tail, spec)
         return kept.new_zeros((0, w))
-    return pool_kernel.interp_fused(kept.contiguous(), row0, body, tail, aaf, spec)
+    return pool_kernel.interp_fused(kept, row0, body, tail, aaf, spec)
 
 
 def _pool_split(pool: torch.Tensor):

@@ -1,0 +1,207 @@
+"""The pool_compat kernels and calls of this checkout against another's, in turns.
+
+    python -m sangnom_tpu_torch.tools.pool_ab OTHER_CHECKOUT [--reps N] [--rounds R]
+
+For each checkout (this one, and OTHER_CHECKOUT, e.g. an unpacked earlier
+commit) it first builds the kernel library with ptxas's report and prints
+the registers and spill bytes of every pool kernel instantiation.  Then it
+runs worker processes in turns (other, this, this, other, ``--rounds``
+times); each worker imports the ``sangnom_tpu_torch`` of its checkout and
+times by CUDA events, on the inputs of ``chip_smoke.py`` (seeds 8 and 9):
+
+  - K3 alone at the 1080 luma pass (pool 9 x 541 x 1920, the stale pool of
+    a pool_compat bob with the pass's maps prepared into it);
+  - a K7 pass (``pool_kernel.interp_fused``) at the 1080 luma and chroma
+    passes, on the same stale pool, kept rows contiguous;
+  - the pool_compat calls per kernel arm (K3, K6, K7, set by
+    ``pool_carry.POOL_SPLIT3`` / ``POOL_FUSED``), in ms per output frame:
+    the 1080i bob (16 interlaced frames -> 32), 16 frames of 1280x720 and 30
+    frames of 720x480 at ``order=1``.
+
+The outputs must agree bit for bit (SHA-256 of each output) across the
+checkouts, and the arms of a call with each other; the command exits
+nonzero otherwise.  It prints each case's best ms per checkout and the
+factor other / this.  Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[2]  # this checkout
+
+ARMS = {"K3": (False, False), "K6": (True, False), "K7": (False, True)}
+CALLS = ("bob1080", "hd720", "sd480")
+# case -> serial row steps of one launch (None: a call, ms per output frame)
+CASES = {"K3 luma": 539, "K7 luma": 539, "K7 chroma": 539,
+         **{f"{c}/{a}": None for c in CALLS for a in ARMS}}
+
+
+def ptxas_report(tree: Path) -> list[str]:
+    """Build ``tree``'s kernel library with ptxas -v; registers and spills of
+    each pool kernel instantiation (template arguments as mangled)."""
+    code = "from sangnom_tpu_torch.ops import deint_kernel as dk; dk.build(verbose=True)"
+    p = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
+                       text=True, env={**os.environ, "PYTHONPATH": str(tree)})
+    if p.returncode:
+        raise SystemExit(f"build failed in {tree}:\n{p.stderr[-6000:]}")
+    out, fn = [], None
+    for line in p.stdout.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        elif fn and "pool_" in fn and ("Used" in line or "spill" in line):
+            name = re.search(r"(pool_[a-z0-9]+_kernel)I(\w+?)EEv", fn)
+            head = f"{name.group(1)}<{name.group(2)}>" if name else fn
+            out.append(f"{head}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def worker(reps: int) -> dict:
+    """Time this process's ``sangnom_tpu_torch`` on the pool cases."""
+    import numpy as np
+    import torch
+
+    from sangnom_tpu_torch import Clip, bob, get_format, sangnom2
+    from sangnom_tpu_torch.core.geometry import aaf_as_pixel, scaled_aa_thresholds
+    from sangnom_tpu_torch.ops import pool_carry as pc
+    from sangnom_tpu_torch.ops import pool_kernel as pk
+    from sangnom_tpu_torch.ops.primitives import KernelSpec
+    from sangnom_tpu_torch.ops.sangnom import sangnom2_pool_stream
+
+    fmt = get_format("YUV420P8")
+    rng = np.random.default_rng(8)
+    hd = [rng.integers(0, 256, (16, h, w)).astype(np.uint8)
+          for h, w in ((1080, 1920), (540, 960), (540, 960))]
+    sd = [rng.integers(0, 256, (30, h, w)).astype(np.uint8)
+          for h, w in ((480, 720), (240, 360), (240, 360))]
+    rng = np.random.default_rng(9)
+    hd720 = [rng.integers(0, 256, (16, h, w)).astype(np.uint8)
+             for h, w in ((720, 1280), (360, 640), (360, 640))]
+    clip_hd = Clip.from_numpy(hd, fmt, device="cuda", tff=True)
+    clip_sd = Clip.from_numpy(sd, fmt, device="cuda")
+    clip_720 = Clip.from_numpy(hd720, fmt, device="cuda")
+    calls = {
+        "bob1080": (lambda: bob(clip_hd, pool_compat=True), 32),
+        "hd720": (lambda: sangnom2(clip_720, order=1, pool_compat=True), 16),
+        "sd480": (lambda: sangnom2(clip_sd, order=1, pool_compat=True), 30),
+    }
+    spec = KernelSpec.from_format(fmt)
+    aafs = scaled_aa_thresholds(48, 0, fmt)
+    pc.POOL_SPLIT3, pc.POOL_FUSED = ARMS["K3"]
+    _, stale = sangnom2_pool_stream(clip_hd[0:2], None, order=1)  # a stale 1080 pool
+    kept = {"luma": clip_hd.planes[0][0, 0::2].contiguous(),
+            "chroma": clip_hd.planes[1][0, 0::2].contiguous()}
+    aaf = {"luma": aaf_as_pixel(aafs[0], fmt), "chroma": aaf_as_pixel(aafs[1], fmt)}
+    k3_pool = stale.clone()
+    bufH_p, w = kept["luma"].shape
+    pc._prepare(kept["luma"], k3_pool[:, 1:bufH_p, :w], spec)
+
+    def k7(plane):
+        carry = pc._pool_split(stale)
+        return lambda: pk.interp_fused(kept[plane], *carry, aaf[plane], spec)
+
+    fns = {
+        "K3 luma": (lambda p=k3_pool.clone(): pk.smooth_pool_(p, spec), None),
+        "K7 luma": (k7("luma"), None),
+        "K7 chroma": (k7("chroma"), None),
+    }
+    for c, (fn, frames) in calls.items():
+        for arm in ARMS:
+            fns[f"{c}/{arm}"] = (fn, frames)
+
+    def cuda_ms(fn, n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    def digest(out) -> str:
+        h = hashlib.sha256()
+        if hasattr(out, "planes"):
+            out = out.planes
+        for t in out if isinstance(out, (list, tuple)) else [out]:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    res = {}
+    for name, (fn, frames) in fns.items():
+        if frames is not None:
+            pc.POOL_SPLIT3, pc.POOL_FUSED = ARMS[name.split("/")[1]]
+        # the first call's output: K3 on a copy of its pool, K7 on a fresh carry
+        first = (pk.smooth_pool_(k3_pool.clone(), spec) if name == "K3 luma"
+                 else k7(name.split()[1])() if name.startswith("K7") else fn())
+        torch.cuda.synchronize()
+        sha = digest(first)
+        del first
+        n = reps if frames is None else max(1, reps // 5)
+        ms = [cuda_ms(fn, n) / (frames or 1) for _ in range(3)]
+        res[name] = {"ms": ms, "sha256": sha}
+    return {"device": torch.cuda.get_device_name(0), "cases": res}
+
+
+def run_worker(tree: Path, reps: int) -> dict:
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--worker", "--reps", str(reps)]
+    p = subprocess.run(cmd, cwd=tree, capture_output=True, text=True,
+                       env={**os.environ, "PYTHONPATH": str(tree)})
+    if p.returncode:
+        raise SystemExit(f"worker in {tree} failed:\n{p.stderr[-6000:]}")
+    return json.loads(p.stdout.strip().splitlines()[-1])
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("other", nargs="?", type=Path)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--worker", action="store_true")
+    a = ap.parse_args(argv)
+    if a.worker:
+        print(json.dumps(worker(a.reps)))
+        return 0
+    if a.other is None:
+        ap.error("OTHER_CHECKOUT is required")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+    trees = {"other": a.other.resolve(), "this": HERE}
+    for tag in trees:
+        for line in ptxas_report(trees[tag]):
+            print(f"[ptxas {tag}] {line}", flush=True)
+    ms = {tag: {c: [] for c in CASES} for tag in trees}
+    sha = {}
+    order = ["other", "this"]
+    for _ in range(a.rounds):
+        for tag in order + order[::-1]:
+            got = run_worker(trees[tag], a.reps)
+            for c, v in got["cases"].items():
+                ms[tag][c] += v["ms"]
+                key = c.split("/")[0]  # every arm of a call gives one output
+                if sha.setdefault(key, v["sha256"]) != v["sha256"]:
+                    raise SystemExit(f"{c}: the {tag} checkout's output differs")
+    summary = {}
+    for c, steps in CASES.items():
+        best = {tag: min(ms[tag][c]) for tag in trees}
+        summary[c] = best
+        unit = "ms" if steps else "ms/output frame"
+        step = "" if steps is None else "; row step us " + ", ".join(
+            f"{tag} {best[tag] / steps * 1e3:.3f}" for tag in trees)
+        print(f"[ab] {c}: " + ", ".join(f"{tag} {best[tag]:.4f} {unit}" for tag in trees)
+              + f"; factor other/this {best['other'] / best['this']:.3f}{step}; outputs "
+              f"bit-equal | {card}", flush=True)
+    print(json.dumps({"card": card, "best_ms": summary, "windows_ms": ms}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

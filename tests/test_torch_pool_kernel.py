@@ -1,4 +1,5 @@
-"""The port's pool kernels (sangnom_tpu_torch.ops.pool_kernel): K3, K6, K7.
+"""The port's pool kernels (sangnom_tpu_torch.ops.pool_kernel): K3, K6, and
+K7 as its prepare kernel, the K6 walk and its finalize kernel.
 
 On the CPU each wrapper runs its plain PyTorch twin; those cases are held
 bit for bit against the TPU package's Pallas pool kernels in interpret mode
@@ -55,8 +56,17 @@ def _stale_pool(fmt, spec, P, S, rng, device="cpu"):
 
 def _kept_shapes(P, S):
     """(rows, width) of the planes a pass is tested on: luma covering the
-    pool (R = P-1), an unaligned luma, chroma (R < P-1, w < S), degenerate."""
-    return [(P, S), (P, max(S - 7, 1)), (max(P // 2, 2), max(S // 2 - 3, 1)), (1, S // 2)]
+    pool (R = P-1), an unaligned luma, chroma (R < P-1, w < S), widths below
+    the 7-tap span, degenerate."""
+    return [(P, S), (P, max(S - 7, 1)), (max(P // 2, 2), max(S // 2 - 3, 1)),
+            (5, 6), (2, 1), (1, S // 2)]
+
+
+def _kept_views(rng, rows, w, fmt, device="cpu"):
+    """The same kept rows twice: contiguous, and as the odd rows of a frame
+    (a field read in place, row stride 2w)."""
+    frame = torch.from_numpy(_rand(rng, (2 * rows, w), fmt)).to(device)
+    return frame[1::2].contiguous(), frame[1::2]
 
 
 # --- on the CPU ------------------------------------------------------------
@@ -72,6 +82,9 @@ def test_cpu_wrappers_do_not_launch():
     carry = pc._pool_split(pool)
     pk.smooth_split3_(*carry, spec)
     pk.interp_fused(kept, *pc._pool_split(pool), _aaf(fmt), spec)
+    body = carry[1]
+    pk.prepare_pool_(kept, body, spec)
+    pk.finalize_pool(kept, body, _aaf(fmt), spec)
     assert pk.LAUNCHES == before
     pk.reset_launches()
     assert set(pk.LAUNCHES.values()) == {0}
@@ -98,6 +111,11 @@ def _bad_calls():
         ("does not fit", lambda: pk.interp_fused(torch.zeros((5, 33), dtype=torch.uint8),
                                                  row0, body, tail, 62, spec)),
         ("does not fit", lambda: pk.interp_fused(kept[:1], row0, body, tail, 62, spec)),
+        ("body must be", lambda: pk.prepare_pool_(kept, body[:8], spec)),
+        ("contiguous", lambda: pk.prepare_pool_(kept[:, ::2], body, spec)),
+        ("does not fit", lambda: pk.finalize_pool(torch.zeros((5, 33), dtype=torch.uint8), body,
+                                                  62, spec)),
+        ("dtype", lambda: pk.finalize_pool(kept, body.float(), 62, spec)),
     ]
 
 
@@ -186,6 +204,44 @@ def test_fused_twin_matches_pallas(jax_pool, fmt_name, sse2, shape):
                                   np.asarray(jax_pool._pool_join_fused(jcarry, jspec, S)))
 
 
+@pytest.mark.parametrize("fmt_name,sse2", SPECS, ids=str)
+@pytest.mark.parametrize("shape", ["luma", "chroma"])
+@pytest.mark.parametrize("via", ["plain", "wrappers"])
+def test_fused_stages_match_pallas(jax_pool, fmt_name, sse2, shape, via):
+    """K7's three stages in sequence (prepare, K6 walk, finalize; their
+    plain twins, or the wrappers that run them on the CPU) == the TPU
+    package's K7 on a stale pool, the kept rows read in place as the odd
+    rows of a frame: luma covers the pool (R = P-1, w < S), chroma has
+    R < P-1 and w < S/2."""
+    import jax.numpy as jnp
+
+    fmt = get_format(fmt_name)
+    spec = KernelSpec.from_format(fmt, sse2=sse2)
+    jspec = _jspec(spec)
+    rng = np.random.default_rng(6)
+    P, S = 8, 64
+    pool = _stale_pool(fmt, spec, P, S, rng)
+    rows, w = (P, 61) if shape == "luma" else (3, 29)
+    dense, kept = _kept_views(rng, rows, w, fmt)
+    assert kept.stride(0) == 2 * w
+    aaf = _aaf(fmt, 0 if shape == "luma" else 1)
+    jcarry = jax_pool._pool_split_fused(jnp.asarray(pool.numpy()), jspec)
+    want, jcarry = jax_pool.interp_field_pool_fused(jnp.asarray(dense.numpy()), jcarry,
+                                                    aaf, jspec, S)
+    row0, body, tail = pc._pool_split(pool)
+    if via == "plain":
+        pk.prepare_pool_plain_(kept, body, spec)
+        pk.smooth_split3_plain_(row0, body, tail, spec)
+        got = pk.finalize_pool_plain(kept, body, aaf, spec)
+    else:
+        pk.prepare_pool_(kept, body, spec)
+        pk.smooth_split3_(row0, body, tail, spec)
+        got = pk.finalize_pool(kept, body, aaf, spec)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(pc._pool_join((row0, body, tail)).numpy(),
+                                  np.asarray(jax_pool._pool_join_fused(jcarry, jspec, S)))
+
+
 # --- on the card -----------------------------------------------------------
 
 @pytest.fixture
@@ -214,22 +270,77 @@ def test_pool_kernels_match_twins_on_card(cuda, fmt_name, sse2, S):
     pool = _stale_pool(fmt, spec, P, S, rng, cuda)
     assert pool[:, 1:P].any()
     for rows, w in _kept_shapes(P, S):
-        kept = torch.from_numpy(_rand(rng, (rows, w), fmt)).to(cuda)
+        dense, strided = _kept_views(rng, rows, w, fmt, cuda)
         aaf = _aaf(fmt, 0 if w >= S - 7 else 1)
         want_pool = pool.clone()
-        want = pc.interp_field_pool(kept, want_pool, aaf, spec)
-        for name, run in (
-            ("K3", lambda p: (pc.interp_field_pool_k3(kept, p, aaf, spec), p)),
-            ("K6", lambda p: _on_split(pc.interp_field_pool_split3, kept, p, aaf, spec)),
-            ("K7", lambda p: _on_split(pc.interp_field_pool_fused, kept, p, aaf, spec)),
-        ):
-            before = dict(pk.LAUNCHES)
-            got, got_pool = run(pool.clone())
-            torch.cuda.synchronize()
-            assert pk.LAUNCHES != before, f"{name} did not launch"
-            assert torch.equal(got, want), f"{name} rows differ at kept {rows}x{w}"
-            assert torch.equal(got_pool, want_pool), f"{name} pool differs at kept {rows}x{w}"
+        want = pc.interp_field_pool(dense, want_pool, aaf, spec)
+        for kept in (dense, strided):
+            for name, run in (
+                ("K3", lambda p: (pc.interp_field_pool_k3(kept, p, aaf, spec), p)),
+                ("K6", lambda p: _on_split(pc.interp_field_pool_split3, kept, p, aaf, spec)),
+                ("K7", lambda p: _on_split(pc.interp_field_pool_fused, kept, p, aaf, spec)),
+            ):
+                before = dict(pk.LAUNCHES)
+                got, got_pool = run(pool.clone())
+                torch.cuda.synchronize()
+                assert pk.LAUNCHES != before, f"{name} did not launch"
+                assert torch.equal(got, want), f"{name} rows differ at kept {rows}x{w}"
+                assert torch.equal(got_pool, want_pool), f"{name} pool differs at kept {rows}x{w}"
         pool = want_pool
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt_name,sse2", CUDA_FORMATS, ids=str)
+@pytest.mark.parametrize("S", [64, 736, 1920])
+def test_prepare_finalize_kernels_match_twins_on_card(cuda, fmt_name, sse2, S):
+    """The K7 prepare and finalize kernels each against its twin on the same
+    CUDA tensors, on a stale body, kept rows contiguous and strided, at
+    luma, chroma and narrow widths: the whole body and the rows bit-equal;
+    each K7 pass is three launches."""
+    fmt = get_format(fmt_name)
+    spec = KernelSpec.from_format(fmt, sse2=sse2)
+    rng = np.random.default_rng(S + 1)
+    P = 21
+    _, body, _ = pc._pool_split(_stale_pool(fmt, spec, P, S, rng, cuda))
+    for rows, w in _kept_shapes(P, S)[:-1]:
+        aaf = _aaf(fmt, 0 if w >= S - 7 else 1)
+        for kept in _kept_views(rng, rows, w, fmt, cuda):
+            got, want = body.clone(), body.clone()
+            pk.prepare_pool_(kept, got, spec)
+            pk.prepare_pool_plain_(kept, want, spec)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"prepare differs at kept {rows}x{w}"
+            rows_got = pk.finalize_pool(kept, body, aaf, spec)
+            rows_want = pk.finalize_pool_plain(kept, body, aaf, spec)
+            torch.cuda.synchronize()
+            assert torch.equal(rows_got, rows_want), f"finalize differs at kept {rows}x{w}"
+    row0, body, tail = pc._pool_split(_stale_pool(fmt, spec, P, S, rng, cuda))
+    kept = _kept_views(rng, P // 2, S // 2, fmt, cuda)[1]
+    before = dict(pk.LAUNCHES)
+    pk.interp_fused(kept, row0, body, tail, _aaf(fmt), spec)
+    assert {k: pk.LAUNCHES[k] - before[k] for k in before} == {
+        "smooth": 0, "split3": 1, "prepare": 1, "finalize": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt_name,sse2", CUDA_FORMATS, ids=str)
+@pytest.mark.parametrize("S", [5, 61, 739, 2050])
+def test_smooth_kernel_odd_strides_on_card(cuda, fmt_name, sse2, S):
+    """K3 and K6 against their twins at pool strides below the 7-tap span,
+    not a multiple of the 4-column group, and in the 8-column build with a
+    partial last group: the whole pool bit-equal."""
+    fmt = get_format(fmt_name)
+    spec = KernelSpec.from_format(fmt, sse2=sse2)
+    pool = _stale_pool(fmt, spec, 13, S, np.random.default_rng(S + 2), cuda)
+    got, want = pool.clone(), pool.clone()
+    pk.smooth_pool_(got, spec)
+    pk.smooth_pool_plain_(want, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"K3 differs at stride {S}"
+    carry = pc._pool_split(pool)
+    pk.smooth_split3_(*carry, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(pc._pool_join(carry), want), f"K6 differs at stride {S}"
 
 
 def _on_split(plane_pass, kept, pool, aaf, spec):
