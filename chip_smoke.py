@@ -12,8 +12,11 @@ on 120 fields of 1920x540.  Then the pool_compat path: the 1080i bob with
 YUV420P8, through each pool kernel arm (K3, K6, and K7: the prepare kernel,
 the K6 walk and the finalize kernel).  Then the
 width-sharded path: ``parallel.sangnom2_sharded`` on meshes of the one card
-(1x4 through K4 and through K5, 2x2 through K4) on the 1080 dh call and the
-woven 1080i bob, held bit-equal to the single-device kernel path.  Checks
+(1x4 through K4 and through the K5 route, 2x2 through K4) on the 1080 dh
+call and the woven 1080i bob, held bit-equal to the single-device kernel
+path, one K4 launch (or one prepare, K5 and finalize launch) a plane pass
+and no host-side halo exchange; each pass timed, with its blocks a SM,
+clusters and waves.  Checks
 the outputs against the plain path and the native oracle, and times kernels
 and plain versions with CUDA events.  Last, the cost-model path: the probe
 kernels K8-K10 (``csrc/probes.cu``) held bit-equal to their plain versions,
@@ -520,7 +523,7 @@ def profile_call(fn, wall_ms: float, what: str, card: str,
         f"call, {sum(r[1] for r in rows)} kernel launches; top (name, launches, ms): "
         f"{top} | {card}")
     return {"busy_ms": busy, "wall_ms": wall_ms, "host_ms": host_ms,
-            "launches": sum(r[1] for r in rows), "top": top}
+            "launches": sum(r[1] for r in rows), "top": top, "all": rows}
 
 
 def _k3_err(pk, pool, spec) -> float:
@@ -552,13 +555,17 @@ def _k7_err(pk, pc, pool, kept, aaf, spec) -> float:
 
 
 def phase_shard_matrix(get_format, KernelSpec, details):
-    """K4 and K5 vs their plain versions on CUDA tensors: formats and
-    numerics x shard counts 1/2/4/8 (thin shards, and a chroma-like plane
-    whose true width is short of the padded one) x chunk_rows 1/5/16, K4 with
-    no weave and weave offsets 0/1/per frame; bit-equal required."""
+    """The sharded kernels vs their plain versions on CUDA tensors: formats
+    and numerics x shard counts 1/2/4/8 on the cluster route and 12 on the
+    chunk route (thin shards, 4- and 1-column blocks, and a chroma-like
+    plane whose true width is short of the padded one) x chunk_rows 1/5/16;
+    K4 with no weave and weave offsets 0/1/per frame, K5 on the whole plane,
+    the chunked route's prepare and finalize kernels alone and the route;
+    bit-equal required, and each kernel's launches equal to its plan."""
     from sangnom_tpu_torch.core.geometry import aaf_as_pixel, scaled_aa_thresholds
     from sangnom_tpu_torch.parallel import fused_smooth as fs
     from sangnom_tpu_torch.parallel import shard_kernel as sk
+    from sangnom_tpu_torch.parallel import width_sharded as ws
 
     rng = np.random.default_rng(17)
     formats = [("GRAY8", "c"), ("GRAY8", "sse2"), ("GRAY16", "c"),
@@ -566,9 +573,11 @@ def phase_shard_matrix(get_format, KernelSpec, details):
                ("GRAYS", "c")]
     # K4: (shards, padded width, true width); K5: (shards, padded width)
     k4_geoms = [(1, 1920, 1920), (2, 1920, 1917), (4, 988, 960), (8, 1920, 1920),
-                (8, 72, 70)]
-    k5_geoms = [(1, 480), (2, 988), (4, 1920), (8, 64)]
-    cases = {"K4": 0, "K5": 0}
+                (8, 72, 70), (12, 1920, 1916)]
+    k5_geoms = [(1, 480), (2, 988), (4, 1920), (8, 64), (12, 1920)]
+    route_geoms = [(4, 988, 960), (1, 1920, 1920)]
+    limit = 227 * 1024
+    cases = {"K4": 0, "K5": 0, "prepare": 0, "finalize": 0, "route": 0}
     for fmt_name, numerics in formats:
         fmt = get_format(fmt_name)
         spec = KernelSpec.from_format(fmt, sse2=numerics == "sse2")
@@ -580,38 +589,67 @@ def phase_shard_matrix(get_format, KernelSpec, details):
             pf = torch.from_numpy(rng.integers(0, 2, 3).astype(np.int32)).to(DEVICE)
             pw = w if w < S else None
             for chunk_rows in (1, 5, 16):
+                plan = sk.full_plan(n, S // n, 17, kept.element_size(), limit, chunk_rows)
                 for off in (None, 0, 1, pf):
                     before = sk.LAUNCHES["full"]
                     if off is None:
                         got = fs.interpolate_fused_full(kept, aaf, spec, n, pw, chunk_rows)
+                        torch.cuda.synchronize()
+                        launched = sk.LAUNCHES["full"] - before
                         want = fs.interpolate_fused_full_plain(kept, aaf, spec, n, pw, chunk_rows)
                     else:
                         got = fs.deinterlace_fused_full(kept, off, aaf, spec, n, pw, chunk_rows)
+                        torch.cuda.synchronize()
+                        launched = sk.LAUNCHES["full"] - before
                         want = fs.deinterlace_fused_full_plain(kept, off, aaf, spec, n, pw,
                                                                chunk_rows)
-                    torch.cuda.synchronize()
-                    if sk.LAUNCHES["full"] == before or not torch.equal(got, want):
+                    if launched != plan.launches or not torch.equal(got, want):
                         raise AssertionError(
                             f"K4 != plain: {fmt_name} {numerics} shards={n} S={S} w={w} "
                             f"chunk_rows={chunk_rows} weave={'pf' if off is pf else off} "
+                            f"launches {launched} (plan {plan.launches}) "
                             f"max_abs={max_abs(got, want)}")
                     cases["K4"] += 1
         for n, S in k5_geoms:
-            raw = (torch.from_numpy(rng.random((n, 27, 18, S // n), dtype=np.float32) * 300)
+            raw = (torch.from_numpy(rng.random((27, 18, S), dtype=np.float32) * 300)
                    if spec.is_float else torch.from_numpy(
-                       rng.integers(0, spec.mask + 1, (n, 27, 18, S // n)).astype(np.int32)))
-            raw[:, :, [0, 17]] = 0
+                       rng.integers(0, spec.mask + 1, (27, 18, S)).astype(np.int32)))
+            raw[:, [0, 17]] = 0
             raw = raw.to(DEVICE)
             for chunk_rows in (1, 5, 16):
+                plan = sk.smooth_plan(n, S // n, 17, limit, chunk_rows)
                 before = sk.LAUNCHES["smooth"]
-                got = fs.smooth_sharded_chunked(raw, spec, chunk_rows)
-                want = fs.smooth_sharded_chunked_plain(raw, spec, chunk_rows)
+                got = fs.smooth_full_width(raw, spec, n, chunk_rows)
                 torch.cuda.synchronize()
-                if sk.LAUNCHES["smooth"] == before or not torch.equal(got, want):
+                launched = sk.LAUNCHES["smooth"] - before
+                want = ws._unshard(fs.smooth_sharded_chunked_plain(
+                    ws._shards(raw, n), spec, chunk_rows))
+                if launched != plan.launches or not torch.equal(got, want):
                     raise AssertionError(
                         f"K5 != plain: {fmt_name} {numerics} shards={n} S={S} "
-                        f"chunk_rows={chunk_rows} max_abs={max_abs(got, want)}")
+                        f"chunk_rows={chunk_rows} launches {launched} (plan "
+                        f"{plan.launches}) max_abs={max_abs(got, want)}")
                 cases["K5"] += 1
+        for n, S, w in route_geoms:
+            kept = _rand_plane(rng, (3, 17, w), fmt)
+            kept = np.concatenate([kept, np.repeat(kept[:, :, -1:], S - w, axis=2)], axis=2)
+            kept = torch.from_numpy(np.ascontiguousarray(kept)).to(DEVICE)
+            pw = w if w < S else None
+            raw = sk.prepare(kept, spec, w)
+            sm = fs.smooth_full_width(raw.view(27, 18, S), spec, n).view(9, 3, 16, S)
+            checks = (
+                ("prepare", raw, ws.prepare_chunked_plain(kept, spec, n, pw)),
+                ("finalize", sk.finalize(kept, sm, aaf, spec),
+                 ws.finalize_chunked_plain(kept, sm, aaf, spec, n)),
+                ("route", fs.interpolate_chunked(kept, aaf, spec, n, pw),
+                 fs.interpolate_chunked_plain(kept, aaf, spec, n, pw)))
+            torch.cuda.synchronize()
+            for key, got, want in checks:
+                if not torch.equal(got, want):
+                    raise AssertionError(f"chunked route {key} != plain: {fmt_name} "
+                                         f"{numerics} shards={n} S={S} w={w} "
+                                         f"max_abs={max_abs(got, want)}")
+                cases[key] += 1
     details["shard_matrix_cases"] = cases
     return cases
 
@@ -633,33 +671,31 @@ def _plane_passes(clip, dh: bool, n_space: int):
 
 
 def shard_expected(clip, dh: bool, n_data: int, n_space: int, arm: str) -> dict:
-    """Kernel launches and halo exchanges of one sharded call, from the chunk
-    geometry: per data row and plane pass, K4 one kept exchange and
-    ceil(bufH / R) chunks (the weave's n_tot = bufH); K5 two whole-plane
-    exchanges (kept rows, raw maps) and ceil((bufH-1) / R) chunks."""
-    from sangnom_tpu_torch.parallel import fused_smooth as fs
+    """Kernel launches of one sharded call, from the plans: per data row and
+    plane pass (luma, fused U+V), K4 one launch on the cluster route; the K5
+    route one prepare, one K5 and one finalize launch.  No host-side halo
+    exchange."""
+    from sangnom_tpu_torch.parallel import shard_kernel as sk
 
-    want = {"launches": 0, "kept": 0, "carry": 0}
+    want = {k: 0 for k in sk.LAUNCHES}
     for bufH, w_loc in _plane_passes(clip, dh, n_space):
         if arm == "K4":
-            R, _ = fs.chunk_geometry_k4(w_loc, bufH)
-            chunks, kept = -(-bufH // R), 1
+            want["full"] += n_data * sk.full_plan(n_space, w_loc, bufH, 1, 227 * 1024).launches
         else:
-            R, _ = fs.chunk_geometry_k5(w_loc, bufH - 1)
-            chunks, kept = -(-(bufH - 1) // R), 2
-        want["launches"] += n_data * chunks
-        want["kept"] += n_data * kept
-        want["carry"] += n_data * chunks
+            want["smooth"] += n_data * sk.smooth_plan(n_space, w_loc, bufH, 227 * 1024).launches
+            want["prepare"] += n_data
+            want["finalize"] += n_data
     return want
 
 
 def phase_sharded_main_path(clip_dh, woven, out_dh, out_bob, details):
     """sangnom2_sharded at full 1080 size on meshes of the one card: 1x4
-    through K4 (default) and through K5 (smooth="chunked"), and 2x2 through
-    K4, each on the dh call and the woven bob; each output bit-equal to the
-    single-device kernel path (phase 4), launches and halo exchanges equal
-    to their formulas; the scan arm (opt=0) on 4-frame prefixes too.
-    Returns {arm: launches of its 1x4 run}."""
+    through K4 (default) and through the K5 route (smooth="chunked"), and
+    2x2 through K4, each on the dh call and the woven bob; each output
+    bit-equal to the single-device kernel path (phase 4), launches equal to
+    their formula (data rows x plane passes) and no host-side halo
+    exchange; the scan arm (opt=0) on 4-frame prefixes too.  Returns the
+    1x4 runs' launches, {arm: {kernel: launches}}."""
     from sangnom_tpu_torch.parallel import default_mesh, sangnom2_sharded
     from sangnom_tpu_torch.parallel import shard_kernel as sk
     from sangnom_tpu_torch.parallel import width_sharded as ws
@@ -678,15 +714,13 @@ def phase_sharded_main_path(clip_dh, woven, out_dh, out_bob, details):
         torch.cuda.synchronize()
         got = dict(sk.LAUNCHES)
         exch = dict(ws.HALO_EXCHANGES)
-        key = "full" if arm == "K4" else "smooth"
-        want = {"launches": 0, "kept": 0, "carry": 0}
+        want = {k: 0 for k in sk.LAUNCHES}
         for name, (c, kw, _) in calls.items():
             for k, v in shard_expected(c, kw.get("dh", False), n_data, n_space, arm).items():
                 want[k] += v
-        if (got[key], exch["kept"], exch["carry"], exch["row"]) != (
-                want["launches"], want["kept"], want["carry"], 0) or sum(got.values()) != got[key]:
+        if got != want or any(exch.values()):
             raise AssertionError(f"{arm} {n_data}x{n_space}: launches {got}, exchanges "
-                                 f"{exch}, expected {want}")
+                                 f"{exch}, expected {want} and no exchange")
         for name, (_, _, ref) in calls.items():
             for i, (g, r) in enumerate(zip(outs[name].planes, ref.planes)):
                 if not torch.equal(g, r):
@@ -694,11 +728,11 @@ def phase_sharded_main_path(clip_dh, woven, out_dh, out_bob, details):
                                          f"single-device kernel path, max_abs {max_abs(g, r)}")
         del outs
         if n_data == 1:
-            launches[arm] = got[key]
+            launches[arm] = got
         details[f"shard_main_{arm}_{n_data}x{n_space}"] = {"launches": got, "exchanges": exch}
         log(f"[10 sharded main path] {arm} on a {n_data}x{n_space} mesh of {DEVICE}: dh and "
-            f"bob bit-equal to phase 4; {got[key]} launches, exchanges {exch} (formula "
-            f"{want})")
+            f"bob bit-equal to phase 4; launches {got} (formula: data rows x plane "
+            f"passes, {want}), host-side halo exchanges {exch}")
     mesh = default_mesh(1, 4, devices=[DEVICE] * 4)
     ws.reset_exchanges()
     for name, (c, kw, ref) in calls.items():
@@ -716,47 +750,68 @@ def phase_sharded_main_path(clip_dh, woven, out_dh, out_bob, details):
     return launches
 
 
-def k4_work(n: int, N: int, steps: int, W_loc: int, HALO: int, S: int, elem: int = 1):
-    """(bytes, ops) of one woven K4 chunk launch: the kept rows it reads
-    (steps + 2 of W_ext columns), the woven rows it writes (2 * steps of the
-    plane width S), the carry row in (9 maps x W_ext) and out (9 x W_loc);
-    prepare and smoothing over every W_ext column, finalize over W_loc."""
-    W_ext = W_loc + 2 * HALO
-    nbytes = (n * N * (steps + 2) * W_ext * elem + N * 2 * steps * S * elem
-              + n * N * 9 * (W_ext + W_loc) * 4)
-    ops = n * N * steps * (W_ext * (OPS_PREPARE + OPS_SMOOTH) + W_loc * OPS_FINALIZE)
-    return nbytes, ops
+def k4_work(N: int, bufH: int, S: int, elem: int = 1):
+    """(bytes, ops) of one woven K4 plane pass: the kept rows read once, the
+    woven plane written; every pair prepared, every row of S columns
+    smoothed, every missing pixel finalized (the halo's repeated columns
+    are the kernel's choice, not the function's work)."""
+    return N * bufH * S * elem * 3, N * (bufH - 1) * S * (OPS_PREPARE + OPS_SMOOTH + OPS_FINALIZE)
 
 
-def k5_work(n: int, C: int, steps: int, W_loc: int, HK: int):
-    """(bytes, ops) of one K5 chunk launch: raw rows read (steps + 1 of W_ext
-    columns), the carry row in, the smoothed rows out (W_loc columns); the
-    smoothing of one map over every W_ext column."""
-    W_ext = W_loc + 2 * HK
-    nbytes = 4 * n * C * ((steps + 1) * W_ext + W_ext + steps * W_loc)
-    ops = n * C * steps * W_ext * (OPS_SMOOTH // 9)
-    return nbytes, ops
+def k5_work(C: int, bufH: int, S: int):
+    """(bytes, ops) of one K5 plane pass: raw rows 1..bufH read, the bufH-1
+    smoothed rows written (int32); the smoothing of one map a row."""
+    return 4 * C * (2 * bufH - 1) * S, C * (bufH - 1) * S * (OPS_SMOOTH // 9)
+
+
+def chunked_prepare_work(N: int, bufH: int, S: int, elem: int = 1):
+    """(bytes, ops) of the chunked route's prepare: kept rows in, 9 int32
+    maps of rows 0..bufH out."""
+    return N * bufH * S * elem + 36 * N * (bufH + 1) * S, N * (bufH - 1) * S * OPS_PREPARE
+
+
+def chunked_finalize_work(N: int, bufH: int, S: int, elem: int = 1):
+    """(bytes, ops) of the chunked route's finalize: kept rows and 9 int32
+    smoothed maps in, the interpolated rows out."""
+    R = bufH - 1
+    return N * bufH * S * elem + 36 * N * R * S + N * R * S * elem, N * R * S * OPS_FINALIZE
+
+
+def _timed(fn, plain, reps: int) -> dict:
+    """Best ms of ``fn`` over two windows of ``reps`` calls, the plain
+    twin's ms (one call) and their max_abs_err."""
+    got = fn()
+    want = plain()
+    torch.cuda.synchronize()
+    err = max_abs(got, want)
+    del got, want
+    return {"ms": min(cuda_ms(fn, reps) for _ in range(2)), "plain_ms": cuda_ms(plain, 1),
+            "max_abs_err": err}
 
 
 def phase_shard_timing(clip_dh, woven, card, details):
     """ms per call of the sharded dh and bob at space 1/2/4 through K4 and
-    K5, in turns with the single-device K1 call; ms per launch of K4 and K5
-    at the 1080 luma chunk shape (4 shards, 16 rows), their plain versions'
-    and their bounds.  Returns the per-launch numbers."""
+    the K5 route, in turns with the single-device K1 call; a profile of the
+    1x4 K4 calls and of the 1x4 K5 dh call; ms per plane pass of K4 (1080
+    dh luma and U+V passes on 4 shards) and of the K5 route's three kernels
+    (luma pass), their plain versions' and their bounds; the blocks a SM,
+    clusters and waves of each pass.  Returns the per-pass numbers."""
     from sangnom_tpu_torch import sangnom2
     from sangnom_tpu_torch.core.geometry import aaf_as_pixel, scaled_aa_thresholds
+    from sangnom_tpu_torch.ops import deint_kernel as dk
     from sangnom_tpu_torch.ops.primitives import KernelSpec
     from sangnom_tpu_torch.parallel import default_mesh, sangnom2_sharded
     from sangnom_tpu_torch.parallel import fused_smooth as fs
     from sangnom_tpu_torch.parallel import shard_kernel as sk
-    from sangnom_tpu_torch.parallel.width_sharded import _exchange_halo, _shards
+    from sangnom_tpu_torch.parallel import width_sharded as ws
+    from sangnom_tpu_torch.parallel.sharding import _sharded_pad_width
 
     calls = {"dh": (clip_dh, dict(order=1, dh=True)), "bob": (woven, dict(order=0))}
     arms = {"K1": (None, None)}
     for n in (1, 2, 4):
         arms[f"K4/space{n}"] = (n, None)
         arms[f"K5/space{n}"] = (n, "chunked")
-    reps = {"K1": 5, "K4": 3, "K5": 1}
+    reps = {"K1": 5, "K4": 5, "K5": 2}
 
     def fn(arm, wl):
         c, kw = calls[wl]
@@ -779,68 +834,101 @@ def phase_shard_timing(clip_dh, woven, card, details):
         log(f"[11 shard timing] {k}: {min(ts):.3f} ms/call -> {120 / min(ts) * 1e3:.1f} "
             f"output frames/s (windows {', '.join(f'{t:.3f}' for t in ts)}) | {card}")
     details["shard_e2e_ms"] = e2e
-    for wl in calls:
-        details[f"shard_profile_{wl}"] = profile_call(
-            fn("K4/space4", wl), min(e2e[f"{wl}/K4/space4"]), f"{wl}/K4/space4", card,
-            "11 shard profile")
+    profiles = {}
+    for wl, arm in (("dh", "K4/space4"), ("bob", "K4/space4"), ("dh", "K5/space4")):
+        profiles[f"{wl}/{arm}"] = profile_call(
+            fn(arm, wl), min(e2e[f"{wl}/{arm}"]), f"{wl}/{arm}", card, "11 shard profile")
+    details["shard_profiles"] = profiles
+    # The K5 route's per-pass kernels are its own; every other kernel of its
+    # call (padding, the U+V batch, the trim) is the sharded call's, as in
+    # the K4 call: no torch kernel over the plane belongs to the route.
+    own = ("shard_prepare_kernel", "shard_smooth_kernel", "shard_finalize_kernel",
+           "shard_full_kernel")
+    if "top" in profiles["dh/K5/space4"]:
+        others = {}
+        for key in ("dh/K4/space4", "dh/K5/space4"):
+            others[key] = sorted((k, n) for k, n, _ in profiles[key]["all"]
+                                 if not any(o in k for o in own))
+        mine = {o: sum(n for k, n, _ in profiles["dh/K5/space4"]["all"] if o in k)
+                for o in own}
+        log(f"[11 shard profile] dh/K5/space4 route kernels (name: launches): {mine}; "
+            f"other kernels equal to the K4 call's: {others['dh/K4/space4'] == others['dh/K5/space4']}")
+        # two plane passes (luma, U+V): one prepare, K5 and finalize each
+        if others["dh/K4/space4"] != others["dh/K5/space4"] or list(mine.values()) != [2, 2, 2, 0]:
+            raise AssertionError(f"the K5 route's call launches torch kernels of its own: "
+                                 f"{mine} / {others}")
 
-    # each kernel alone at the 1080 dh luma chunk shape: 4 shards, R = 16
+    # each pass alone: the 1080 dh call's luma and U+V passes on 4 shards
     fmt = clip_dh.format
     spec = KernelSpec.from_format(fmt)
-    aaf = aaf_as_pixel(scaled_aa_thresholds(48, 0, fmt)[0], fmt)
-    kept = clip_dh.planes[0]
-    N, bufH, S = kept.shape
+    aafs = scaled_aa_thresholds(48, 0, fmt)
     n = 4
-    W_loc = S // n
-    R, HALO = fs.chunk_geometry_k4(W_loc, bufH)
-    keptx = _exchange_halo(_shards(kept, n), HALO, "kept")
-    smx = torch.zeros((n, N, 9, W_loc + 2 * HALO), dtype=spec.acc_dtype, device=DEVICE)
-    out_k = torch.empty((N, 2 * bufH, S), dtype=kept.dtype, device=DEVICE)
-    out_p = torch.empty_like(out_k)
-    sm_k = sk.full_chunk(keptx, smx, out_k, 0, 0, R, HALO, S, aaf, spec)
-    sm_p = fs._full_chunk_plain(keptx, smx, out_p, 0, 0, R, HALO, S, aaf, spec)
-    torch.cuda.synchronize()
-    k4_err = max(max_abs(out_k[:, :2 * R], out_p[:, :2 * R]), max_abs(sm_k, sm_p))
-    k4 = dict(
-        ms=min(cuda_ms(lambda: sk.full_chunk(keptx, smx, out_k, 0, 0, R, HALO, S, aaf, spec), 10)
-               for _ in range(2)),
-        plain_ms=cuda_ms(lambda: fs._full_chunk_plain(keptx, smx, out_p, 0, 0, R, HALO, S,
-                                                      aaf, spec), 1),
-        max_abs_err=k4_err)
-    k4["bound_ms"], k4["bound_by"] = bound(*k4_work(n, N, R, W_loc, HALO, S))
-    del keptx, smx, out_k, out_p
-
-    C = 9 * N
-    R5, HK = fs.chunk_geometry_k5(W_loc, bufH - 1)
-    g = torch.Generator(device=DEVICE).manual_seed(3)
-    raw = torch.randint(0, 256, (n, C, bufH + 1, W_loc), generator=g, device=DEVICE,
-                        dtype=torch.int32)
-    raw[:, :, [0, bufH]] = 0
-    rawx = _exchange_halo(raw, HK, "kept")
-    del raw
-    smx5 = torch.randint(0, 256, (n, C, W_loc + 2 * HK), generator=g, device=DEVICE,
-                         dtype=torch.int32)
-    o_k = torch.empty((n, C, bufH - 1, W_loc), dtype=torch.int32, device=DEVICE)
-    o_p = torch.empty_like(o_k)
-    sk.smooth_chunk(smx5, rawx, o_k, 0, R5, HK, spec)
-    fs._smooth_chunk_plain(smx5, rawx, o_p, 0, R5, HK, spec)
-    torch.cuda.synchronize()
-    k5 = dict(
-        ms=min(cuda_ms(lambda: sk.smooth_chunk(smx5, rawx, o_k, 0, R5, HK, spec), 10)
-               for _ in range(2)),
-        plain_ms=cuda_ms(lambda: fs._smooth_chunk_plain(smx5, rawx, o_p, 0, R5, HK, spec), 1),
-        max_abs_err=max_abs(o_k[:, :, :R5], o_p[:, :, :R5]))
-    k5["bound_ms"], k5["bound_by"] = bound(*k5_work(n, C, R5, W_loc, HK))
-    del rawx, smx5, o_k, o_p
-    for name, m, shape in (
-            ("K4", k4, f"weave, {n} shards x {N} fields, W_loc {W_loc} + 2x{HALO} halo, "
-                       f"{R} rows"),
-            ("K5", k5, f"{n} shards x {C} map rows, W_loc {W_loc} + 2x{HK} halo, {R5} rows")):
-        log(f"[11 shard timing] {name} per launch at the 1080 dh luma chunk ({shape}): "
-            f"{m['ms']:.4f} ms, plain {m['plain_ms']:.3f} ms, bound {m['bound_ms']:.4f} ms "
-            f"({m['bound_by']}), max_abs_err {m['max_abs_err']} | {card}")
-    details["shard_kernel_ms"] = {"K4": k4, "K5": k5}
-    return {"K4": k4, "K5": k5}
+    luma = clip_dh.planes[0].contiguous()
+    N, bufH, S = luma.shape
+    Sc = _sharded_pad_width(960, 270, S, n, fmt, True)
+    uv = torch.cat([clip_dh.planes[1], clip_dh.planes[2]])
+    uv = torch.cat([uv, uv[..., -1:].expand(-1, -1, Sc - uv.shape[2])], dim=2).contiguous()
+    passes = {"luma": (luma, aaf_as_pixel(aafs[0], fmt), S),
+              "U+V": (uv, aaf_as_pixel(aafs[1], fmt), 960)}
+    limit = dk._max_smem_bytes(dk._load(), torch.device(DEVICE))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    res: dict = {}
+    for name, (kept, aaf, w) in passes.items():
+        Nk, bH, Sk = kept.shape
+        m = _timed(lambda: sk.full_pass(kept, 0, aaf, spec, n, w),
+                   lambda: fs.deinterlace_fused_full_plain(kept, 0, aaf, spec, n, w), 10)
+        m["bound_ms"], m["bound_by"] = bound(*k4_work(Nk, bH, Sk))
+        plan = sk.full_plan(n, Sk // n, bH, 1, limit)
+        occ = sk.occupancy("full", spec, plan, n, torch.device(DEVICE))
+        m["occupancy"] = {**occ, "blocks": Nk * n, "plan": plan._asdict(),
+                          "waves": Nk * n / max(1, occ["clusters"] * n)}
+        res[f"K4/{name}"] = m
+        log(f"[11 shard timing] K4 per {name} pass ({n} shards x {Nk} fields x {bH} rows, "
+            f"R {plan.R}, halo {plan.H}, {plan.threads} threads x {plan.cols} columns, route "
+            f"{plan.route}): {m['ms']:.4f} ms ({m['ms'] / (bH - 1) * 1e3:.3f} us a row step), "
+            f"plain {m['plain_ms']:.3f} ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']}), "
+            f"max_abs_err {m['max_abs_err']}; {occ['registers']} registers, "
+            f"{occ['spill_bytes']} spill bytes, {occ['blocks_per_sm']} blocks a SM, "
+            f"{occ['clusters']} clusters at once, {Nk * n} blocks = "
+            f"{m['occupancy']['waves']:.2f} waves | {card}")
+        raw = sk.prepare(kept, spec, w)
+        C = 9 * Nk
+        rawf = raw.view(C, bH + 1, Sk)
+        sm = sk.smooth_pass(rawf, spec, n)
+        stages = {
+            "prepare": (lambda: sk.prepare(kept, spec, w),
+                        lambda: ws.prepare_chunked_plain(kept, spec, n, w if w < Sk else None),
+                        chunked_prepare_work(Nk, bH, Sk)),
+            "K5": (lambda: sk.smooth_pass(rawf, spec, n),
+                   lambda: ws._unshard(fs.smooth_sharded_chunked_plain(
+                       ws._shards(rawf, n), spec)), k5_work(C, bH, Sk)),
+            "finalize": (lambda: sk.finalize(kept, sm.view(9, Nk, bH - 1, Sk), aaf, spec),
+                         lambda: ws.finalize_chunked_plain(kept, sm.view(9, Nk, bH - 1, Sk),
+                                                           aaf, spec, n),
+                         chunked_finalize_work(Nk, bH, Sk)),
+        }
+        for key, (kf, pf, work) in stages.items():
+            mm = _timed(kf, pf, 3)
+            mm["bound_ms"], mm["bound_by"] = bound(*work)
+            if key == "K5":
+                p5 = sk.smooth_plan(n, Sk // n, bH, limit)
+                o5 = sk.occupancy("smooth", spec, p5, n, torch.device(DEVICE))
+                mm["occupancy"] = {**o5, "blocks": C * n, "plan": p5._asdict(),
+                                   "waves": C * n / max(1, o5["clusters"] * n)}
+            res[f"{key}/{name}"] = mm
+            occ_s = "" if key != "K5" else (
+                f"; {o5['registers']} registers, {o5['spill_bytes']} spill bytes, "
+                f"{o5['blocks_per_sm']} blocks a SM, {o5['clusters']} clusters at once, "
+                f"{C * n} blocks = {mm['occupancy']['waves']:.2f} waves")
+            log(f"[11 shard timing] {key} per {name} pass ({n} shards, {Nk} fields x {bH} "
+                f"rows x {Sk}): {mm['ms']:.4f} ms, plain {mm['plain_ms']:.3f} ms, bound "
+                f"{mm['bound_ms']:.4f} ms ({mm['bound_by']}), max_abs_err "
+                f"{mm['max_abs_err']}{occ_s} | {card}")
+        del raw, rawf, sm
+        torch.cuda.empty_cache()
+    details["shard_pass_ms"] = res
+    details["sm_count"] = n_sm
+    return res
 
 
 PROBE_SOURCE = "sangnom_tpu_torch/csrc/probes.cu"
@@ -1206,8 +1294,10 @@ def main() -> int:
     t0 = time.perf_counter()
     cases = phase_shard_matrix(get_format, KernelSpec, details)
     log(f"[9 shard kernels vs plain] {cases} cases bit-equal on the card (u8/u16/"
-        f"10-bit/f32, c/sse2, shards 1/2/4/8 with thin and chroma-width shards, "
-        f"chunk_rows 1/5/16, K4 no weave and weave 0/1/per-frame) in "
+        f"10-bit/f32, c/sse2, shards 1/2/4/8 on the cluster route and 12 on the chunk "
+        f"route, thin and chroma-width shards, chunk_rows 1/5/16, K4 no weave and weave "
+        f"0/1/per-frame, K5 on the whole plane, the chunked route's prepare and "
+        f"finalize kernels and the route; launches equal to each plan) in "
         f"{time.perf_counter() - t0:.1f} s")
 
     # 10. the sharded main path at full width, then 11. its timing
@@ -1272,14 +1362,19 @@ def main() -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,
         })
-    for key, name, replaces in (
-        ("K4", "shard_full_kernel (K4)", "sangnom_tpu/parallel/fused_smooth.py:480"),
-        ("K5", "shard_smooth_kernel (K5)", "sangnom_tpu/parallel/fused_smooth.py:116"),
+    for key, name, replaces, lkey in (
+        ("K4", "shard_full_kernel (K4)", "sangnom_tpu/parallel/fused_smooth.py:480", "full"),
+        ("K5", "shard_smooth_kernel (K5)", "sangnom_tpu/parallel/fused_smooth.py:116", "smooth"),
+        ("prepare", "shard_prepare_kernel (K5 route, 1 of 3)",
+         "sangnom_tpu/parallel/fused_smooth.py:116", "prepare"),
+        ("finalize", "shard_finalize_kernel (K5 route, 3 of 3)",
+         "sangnom_tpu/parallel/fused_smooth.py:116", "finalize"),
     ):
-        m = shard_ms[key]
+        m = shard_ms[f"{key}/luma"]
         kernels.append({
             "name": name, "route": "cuda", "source": SHARD_SOURCE, "replaces": replaces,
-            "launches": shard_launches[key], "max_abs_err": m["max_abs_err"],
+            "launches": shard_launches["K4" if key == "K4" else "K5"][lkey],
+            "max_abs_err": max(m["max_abs_err"], shard_ms[f"{key}/U+V"]["max_abs_err"]),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,
         })

@@ -272,4 +272,125 @@ __device__ __forceinline__ void box_window(const typename Ops<T, SSE2>::acc* row
   }
 }
 
+// --- The carried row step (deint.cu K1/K2, shard.cu K4) -----------------------
+//
+// A thread carries the tap windows (columns c0-4 .. c0+COLS+3) of kept pair
+// (b-1, b) and each row's two mirror predictors, so a step reads one new
+// row's window and computes one set of 9 raw maps, raw[b+1].
+
+// A row's mirror predictors at the group's columns; window index j + 4 is
+// column c0 + j.
+template <typename O, int COLS>
+__device__ __forceinline__ void mirror_predictors(const typename O::acc (&x)[COLS + 8],
+                                                  typename O::acc (&p)[COLS],
+                                                  typename O::acc (&q)[COLS]) {
+#pragma unroll
+  for (int j = 0; j < COLS; ++j) {
+    p[j] = O::predict(x[j + 3], x[j + 4], x[j + 5]);
+    q[j] = O::predict(x[j + 5], x[j + 4], x[j + 3]);
+  }
+}
+
+// Raw error map m of kept pair (top t, bottom n) at group column j, from the
+// carried windows and predictors (error_maps in common.cuh, by window).
+template <typename O, int COLS>
+__device__ __forceinline__ typename O::acc window_map(
+    int m, int j, const typename O::acc (&t)[COLS + 8], const typename O::acc (&pt)[COLS],
+    const typename O::acc (&qt)[COLS], const typename O::acc (&n)[COLS + 8],
+    const typename O::acc (&pn)[COLS], const typename O::acc (&qn)[COLS]) {
+  switch (m) {
+    case 0: return O::absdiff(t[j + 1], n[j + 7]);
+    case 1: return O::absdiff(t[j + 2], n[j + 6]);
+    case 2: return O::absdiff(t[j + 3], n[j + 5]);
+    case 3: return O::absdiff(pt[j], qn[j]);  // fwd1, fwd2
+    case 4: return O::absdiff(t[j + 4], n[j + 4]);
+    case 5: return O::absdiff(qt[j], pn[j]);  // bwd1, bwd2
+    case 6: return O::absdiff(t[j + 5], n[j + 3]);
+    case 7: return O::absdiff(t[j + 6], n[j + 2]);
+    default: return O::absdiff(t[j + 7], n[j + 1]);
+  }
+}
+
+// Priority select (finalize in common.cuh) at group column j, taps and
+// predictors from the carried windows.
+template <typename O, int COLS>
+__device__ __forceinline__ typename O::acc window_finalize(
+    int j, const typename O::acc (&t)[COLS + 8], const typename O::acc (&pt)[COLS],
+    const typename O::acc (&qt)[COLS], const typename O::acc (&n)[COLS + 8],
+    const typename O::acc (&pn)[COLS], const typename O::acc (&qn)[COLS],
+    const typename O::acc (&h)[kMaps][COLS], typename O::acc aaf) {
+  using A = typename O::acc;
+  A mn = h[0][j];
+#pragma unroll
+  for (int i = 1; i < kMaps; ++i) mn = O::lo(mn, h[i][j]);
+  A a = t[j + 1], b = n[j + 7];                             // buf0 M3P3
+  if (h[8][j] == mn) { a = t[j + 7]; b = n[j + 1]; }        // P3M3
+  if (h[1][j] == mn) { a = t[j + 2]; b = n[j + 6]; }        // M2P2
+  if (h[7][j] == mn) { a = t[j + 6]; b = n[j + 2]; }        // P2M2
+  if (h[2][j] == mn) { a = t[j + 3]; b = n[j + 5]; }        // M1P1
+  if (h[6][j] == mn) { a = t[j + 5]; b = n[j + 3]; }        // P1M1
+  if (h[3][j] == mn) { a = pt[j]; b = qn[j]; }              // SG_FORWARD
+  if (h[5][j] == mn) { a = qt[j]; b = pn[j]; }              // SG_REVERSE
+  if (h[4][j] == mn || mn > aaf) { a = t[j + 4]; b = n[j + 4]; }  // vertical
+  return O::avg(a, b);
+}
+
+// The step's sum: raw[b+1] of pair (b, b+1) from the carried windows (zero
+// at group columns >= lim, and everywhere when !has_next), the line
+// acc + raw[b+1] into buffer rows m (pitch_b apart, column 0 at buf[0],
+// padded for S columns), and raw[b+1] into the thread-private slice rp.
+template <typename T, bool SSE2, int COLS>
+__device__ __forceinline__ void step_sum(
+    typename Ops<T, SSE2>::acc* buf, int pitch_b, T* rp, int pitch_p, int c0,
+    int S, int lim, bool has_next,
+    const typename Ops<T, SSE2>::acc (&acc)[kMaps][COLS],
+    const typename Ops<T, SSE2>::acc (&wb)[COLS + 8],
+    const typename Ops<T, SSE2>::acc (&pb)[COLS],
+    const typename Ops<T, SSE2>::acc (&qb)[COLS],
+    const typename Ops<T, SSE2>::acc (&wc)[COLS + 8],
+    const typename Ops<T, SSE2>::acc (&pc)[COLS],
+    const typename Ops<T, SSE2>::acc (&qc)[COLS]) {
+  using O = Ops<T, SSE2>;
+  using A = typename O::acc;
+  constexpr int kGrpT = group_align<T, COLS, 0>();
+#pragma unroll
+  for (int m = 0; m < kMaps; ++m) {
+    A v[COLS], r1[COLS];
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+      r1[j] = (has_next && c0 + j < lim)
+                  ? window_map<O, COLS>(m, j, wb, pb, qb, wc, pc, qc) : A(0);
+      v[j] = O::add(acc[m][j], r1[j]);
+    }
+    store_group_padded<A, COLS>(buf + m * pitch_b, c0, S, v);
+    store_elems<T, COLS, kGrpT>(rp + m * pitch_p + c0, r1);
+  }
+}
+
+// The step's box: each map's box sum from its padded buffer row.
+template <typename T, bool SSE2, int COLS>
+__device__ __forceinline__ void step_box(const typename Ops<T, SSE2>::acc* buf,
+                                         int pitch_b, int c0,
+                                         typename Ops<T, SSE2>::acc (&h)[kMaps][COLS]) {
+#pragma unroll
+  for (int m = 0; m < kMaps; ++m) box_window<T, SSE2, COLS>(buf + m * pitch_b, c0, h[m]);
+}
+
+// The next step's first add: acc = sm[b] + raw[b+1], raw[b+1] from rp.
+template <typename T, bool SSE2, int COLS>
+__device__ __forceinline__ void step_carry(const T* rp, int pitch_p, int c0,
+                                           const typename Ops<T, SSE2>::acc (&h)[kMaps][COLS],
+                                           typename Ops<T, SSE2>::acc (&acc)[kMaps][COLS]) {
+  using O = Ops<T, SSE2>;
+  using A = typename O::acc;
+  constexpr int kGrpT = group_align<T, COLS, 0>();
+#pragma unroll
+  for (int m = 0; m < kMaps; ++m) {
+    A r1[COLS];
+    load_elems<T, COLS, kGrpT>(rp + m * pitch_p + c0, r1);
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) acc[m][j] = O::add(h[m][j], r1[j]);
+  }
+}
+
 }  // namespace sno

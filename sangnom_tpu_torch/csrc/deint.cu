@@ -16,7 +16,8 @@
 // one field and walks its rows in a loop.  A thread owns COLS contiguous
 // columns, c0 = tid * COLS.
 //
-// The row step, as the TPU kernel carries it across grid steps: each thread
+// The row step (common.cuh step_sum / step_box / step_carry, shared with
+// shard.cu's K4), as the TPU kernel carries it across grid steps: each thread
 // keeps in registers the tap windows (columns c0-4 .. c0+COLS+3) of the kept
 // pair (b-1, b) and of row b+1, and each row's two mirror predictors
 // P = predict(K[c-1], K[c], K[c+1]) and Q = predict(K[c+1], K[c], K[c-1]):
@@ -63,63 +64,6 @@
 namespace {
 
 using namespace sno;
-
-// A row's mirror predictors at the group's columns; window index j + 4 is
-// column c0 + j.
-template <typename O, int COLS>
-__device__ __forceinline__ void mirror_predictors(const typename O::acc (&x)[COLS + 8],
-                                                  typename O::acc (&p)[COLS],
-                                                  typename O::acc (&q)[COLS]) {
-#pragma unroll
-  for (int j = 0; j < COLS; ++j) {
-    p[j] = O::predict(x[j + 3], x[j + 4], x[j + 5]);
-    q[j] = O::predict(x[j + 5], x[j + 4], x[j + 3]);
-  }
-}
-
-// Raw error map m of kept pair (top t, bottom n) at group column j, from the
-// carried windows and predictors (error_maps in common.cuh, by window).
-template <typename O, int COLS>
-__device__ __forceinline__ typename O::acc window_map(
-    int m, int j, const typename O::acc (&t)[COLS + 8], const typename O::acc (&pt)[COLS],
-    const typename O::acc (&qt)[COLS], const typename O::acc (&n)[COLS + 8],
-    const typename O::acc (&pn)[COLS], const typename O::acc (&qn)[COLS]) {
-  switch (m) {
-    case 0: return O::absdiff(t[j + 1], n[j + 7]);
-    case 1: return O::absdiff(t[j + 2], n[j + 6]);
-    case 2: return O::absdiff(t[j + 3], n[j + 5]);
-    case 3: return O::absdiff(pt[j], qn[j]);  // fwd1, fwd2
-    case 4: return O::absdiff(t[j + 4], n[j + 4]);
-    case 5: return O::absdiff(qt[j], pn[j]);  // bwd1, bwd2
-    case 6: return O::absdiff(t[j + 5], n[j + 3]);
-    case 7: return O::absdiff(t[j + 6], n[j + 2]);
-    default: return O::absdiff(t[j + 7], n[j + 1]);
-  }
-}
-
-// Priority select (finalize in common.cuh) at group column j, taps and
-// predictors from the carried windows.
-template <typename O, int COLS>
-__device__ __forceinline__ typename O::acc window_finalize(
-    int j, const typename O::acc (&t)[COLS + 8], const typename O::acc (&pt)[COLS],
-    const typename O::acc (&qt)[COLS], const typename O::acc (&n)[COLS + 8],
-    const typename O::acc (&pn)[COLS], const typename O::acc (&qn)[COLS],
-    const typename O::acc (&h)[kMaps][COLS], typename O::acc aaf) {
-  using A = typename O::acc;
-  A mn = h[0][j];
-#pragma unroll
-  for (int i = 1; i < kMaps; ++i) mn = O::lo(mn, h[i][j]);
-  A a = t[j + 1], b = n[j + 7];                             // buf0 M3P3
-  if (h[8][j] == mn) { a = t[j + 7]; b = n[j + 1]; }        // P3M3
-  if (h[1][j] == mn) { a = t[j + 2]; b = n[j + 6]; }        // M2P2
-  if (h[7][j] == mn) { a = t[j + 6]; b = n[j + 2]; }        // P2M2
-  if (h[2][j] == mn) { a = t[j + 3]; b = n[j + 5]; }        // M1P1
-  if (h[6][j] == mn) { a = t[j + 5]; b = n[j + 3]; }        // P1M1
-  if (h[3][j] == mn) { a = pt[j]; b = qn[j]; }              // SG_FORWARD
-  if (h[5][j] == mn) { a = qt[j]; b = pn[j]; }              // SG_REVERSE
-  if (h[4][j] == mn || mn > aaf) { a = t[j + 4]; b = n[j + 4]; }  // vertical
-  return O::avg(a, b);
-}
 
 // One block per field; COLS contiguous columns per thread cover the S
 // smoothed columns.
@@ -267,29 +211,16 @@ deint_kernel(const T* __restrict__ src, T* __restrict__ dst,
       row_window(b + 1, wc);
       mirror_predictors<O, COLS>(wc, pc, qc);
     }
-    if (active) {
-#pragma unroll
-      for (int m = 0; m < kMaps; ++m) {
-        A v[COLS], r1[COLS];
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) {
-          r1[j] = (has_next && c0 + j < w)
-                      ? window_map<O, COLS>(m, j, wb, pb, qb, wc, pc, qc) : A(0);
-          v[j] = O::add(acc[m][j], r1[j]);
-        }
-        store_group_padded<A, COLS>(cur + m * pitch_b + kPad, c0, S, v);
-        store_elems<T, COLS, kGrpT>(rp + m * pitch_p + c0, r1);
-      }
-    }
+    if (active)
+      step_sum<T, SSE2, COLS>(cur + kPad, pitch_b, rp, pitch_p, c0, S, w, has_next, acc,
+                              wb, pb, qb, wc, pc, qc);
     if (ahead) place_row(b + 3, nx);
     __syncthreads();
 
     if (active) {
       // Box sum from each map's window, strictly left to right.
       A h[kMaps][COLS];
-#pragma unroll
-      for (int m = 0; m < kMaps; ++m)
-        box_window<T, SSE2, COLS>(cur + m * pitch_b + kPad, c0, h[m]);
+      step_box<T, SSE2, COLS>(cur + kPad, pitch_b, c0, h);
       if (kcol) {
         A res[COLS];
 #pragma unroll
@@ -307,13 +238,7 @@ deint_kernel(const T* __restrict__ src, T* __restrict__ dst,
         }
       }
       // acc = sm[b] + raw[b+1], the next step's first add.
-#pragma unroll
-      for (int m = 0; m < kMaps; ++m) {
-        A r1[COLS];
-        load_elems<T, COLS, kGrpT>(rp + m * pitch_p + c0, r1);
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) acc[m][j] = O::add(h[m][j], r1[j]);
-      }
+      step_carry<T, SSE2, COLS>(rp, pitch_p, c0, h, acc);
     }
 #pragma unroll
     for (int k = 0; k < L; ++k) { wa[k] = wb[k]; wb[k] = wc[k]; }

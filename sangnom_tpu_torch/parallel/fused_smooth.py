@@ -2,30 +2,40 @@
 
 The influence cone: the smoothing recursion propagates horizontal influence
 exactly 3 columns per row (reference src/SangNom2.cpp:129-152), so a shard
-holding a halo of 3R+3 columns of the smoothed carry row and of the raw maps
-(K5), or 3R+6 columns of the kept rows (K4, which also computes the raw maps)
-computes R rows with no exchange: the halo's validity shrinks by 3 columns a
-row and reaches the shard's own width at the chunk's last row.  Per plane
-pass: one exchange of the field's data, then one carry-row exchange per
-chunk (parallel.width_sharded.HALO_EXCHANGES counts both).
+holding a halo of the smoothed carry row computes R rows with no exchange:
+the halo's validity shrinks by 3 columns a row and reaches the shard's own
+width after R rows.
 
   ``smooth_sharded_chunked``  K5 (TPU package ``parallel/fused_smooth.py:116``,
-                              body ``_smooth_kernel``): the smoothing only.
+  ``smooth_full_width``       body ``_smooth_kernel``): the smoothing only;
+                              the chunked route (``interpolate_chunked``)
+                              runs it between the prepare and finalize
+                              kernels.
   ``interpolate_fused_full``  K4 (``_fused_full``, body ``_full_kernel``):
-  ``deinterlace_fused_full``  prepare, smoothing and finalize in one kernel
-                              per chunk; the second also writes the woven
-                              plane (offset 0, 1 or per frame).
+  ``deinterlace_fused_full``  prepare, smoothing and finalize in one kernel;
+                              the second also writes the woven plane
+                              (offset 0, 1 or per frame).
 
-Each launch covers every shard and field of the pass.  Boundary semantics:
-the reference's box clamps its taps at the buffer stride S, the global
-sharded width.  Edge-replicated halos on the boundary shards realize the
-clamp; the recursively computed row is re-replicated at every step, by K5
-after the writeback and by K4 on the summed line before the box.
+On a CPU tensor each wrapper runs its plain version (``*_plain``): a chunk
+loop with a PyTorch step and host-side halo exchanges.  Per plane pass it
+makes one exchange of the field's data (K5: also of its raw maps), then one
+carry-row exchange per chunk of R rows (parallel.width_sharded.
+HALO_EXCHANGES counts both); the halo is 3R+6 kept columns (K4, which also
+computes the raw maps from them) or 3R+3 carry and raw columns (K5).
+Boundary semantics: the reference's box clamps its taps at the buffer
+stride S, the global sharded width; edge-replicated halos on the boundary
+shards realize the clamp, and the recursively computed row is
+re-replicated at every step.
 
-Each wrapper takes a CPU tensor to its plain version (``*_plain``, the same
-chunk loop with a PyTorch step) and a CUDA tensor to its kernel
-(parallel.shard_kernel), which it launches or raises.  Results do not depend
-on ``chunk_rows``.
+On a CUDA tensor each wrapper launches its kernel (parallel.shard_kernel)
+or raises: one launch a plane pass, the shards of a field (K4) or of a map
+row (K5) in one thread-block cluster that exchanges the carry's 3R-column
+halo through distributed shared memory every R rows, with no host-side
+exchange; kept rows and raw maps are read in place from the whole plane.  A
+mesh row of more than ``shard_kernel.MAX_CLUSTER`` shards runs the same
+kernels one launch a chunk.  Results do not depend on ``chunk_rows`` (R);
+left None, each route takes its own default (``PLAIN_ROWS``,
+``shard_kernel.CLUSTER_ROWS``).
 """
 
 from __future__ import annotations
@@ -40,16 +50,20 @@ from sangnom_tpu_torch.ops.reference import (
     pair_taps,
 )
 from sangnom_tpu_torch.ops.sangnom import Offset
-from sangnom_tpu_torch.parallel.width_sharded import _exchange_halo, _shards
+from sangnom_tpu_torch.parallel.width_sharded import _exchange_halo, _shards, _unshard
 
 _MAPS = 9
+# Rows per chunk of the plain versions when the caller gives none (the TPU
+# design's); the kernels take shard_kernel.CLUSTER_ROWS.
+PLAIN_ROWS = 16
 
 
 # --- K5: chunked smoothing --------------------------------------------------
 
-def chunk_geometry_k5(W_loc: int, n_steps: int, chunk_rows: int = 16):
-    """(R, HK): rows per chunk and the halo width of the chunked smoothing."""
-    R = max(1, min(chunk_rows, n_steps, (W_loc - 3) // 3 if W_loc > 6 else 1))
+def chunk_geometry_k5(W_loc: int, n_steps: int, chunk_rows: int | None = None):
+    """(R, HK): rows per chunk and the halo width of the plain chunked
+    smoothing (``chunk_rows`` None: ``PLAIN_ROWS``)."""
+    R = max(1, min(chunk_rows or PLAIN_ROWS, n_steps, (W_loc - 3) // 3 if W_loc > 6 else 1))
     return R, 3 * R + 3
 
 
@@ -69,7 +83,7 @@ def _smooth_chunk_plain(smx, rawx, out, base: int, steps: int, HK: int,
         out[:, :, s] = sm[..., HK: HK + W_loc]
 
 
-def _chunked(raw: torch.Tensor, spec: KernelSpec, chunk_rows: int, step):
+def _chunked(raw: torch.Tensor, spec: KernelSpec, chunk_rows: int | None):
     n, C, bufHp1, W_loc = raw.shape
     n_steps = bufHp1 - 2
     if n_steps <= 0:
@@ -83,19 +97,20 @@ def _chunked(raw: torch.Tensor, spec: KernelSpec, chunk_rows: int, step):
     sm = raw.new_zeros((n, C, W_loc))  # smoothed "row 0" seed
     for base in range(0, n_steps, R):
         steps = min(R, n_steps - base)
-        step(_exchange_halo(sm, HK, "carry"), rawx, out, base, steps, HK, spec)
+        _smooth_chunk_plain(_exchange_halo(sm, HK, "carry"), rawx, out, base, steps, HK,
+                            spec)
         sm = out[:, :, base + steps - 1]
     return out
 
 
 def smooth_sharded_chunked_plain(raw: torch.Tensor, spec: KernelSpec,
-                                 chunk_rows: int = 16) -> torch.Tensor:
+                                 chunk_rows: int | None = None) -> torch.Tensor:
     """Plain version of `smooth_sharded_chunked`."""
-    return _chunked(raw, spec, chunk_rows, _smooth_chunk_plain)
+    return _chunked(raw, spec, chunk_rows)
 
 
 def smooth_sharded_chunked(raw: torch.Tensor, spec: KernelSpec,
-                           chunk_rows: int = 16) -> torch.Tensor:
+                           chunk_rows: int | None = None) -> torch.Tensor:
     """Width-sharded recursive smoothing, R rows per launch.
 
     raw: [n_space, C, bufH+1, W_loc] shard-local raw maps in the accumulator
@@ -107,16 +122,95 @@ def smooth_sharded_chunked(raw: torch.Tensor, spec: KernelSpec,
                          f"{spec.acc_dtype}, got {tuple(raw.shape)} {raw.dtype}")
     if raw.device.type == "cpu":
         return smooth_sharded_chunked_plain(raw, spec, chunk_rows)
+    n, C, bufHp1, W_loc = raw.shape
+    if W_loc <= 6:
+        raise ValueError(f"chunked smoothing needs shards wider than 6 columns, "
+                         f"got {W_loc}")
+    out = smooth_full_width(_unshard(raw), spec, n, chunk_rows)
+    return _shards(out, n).contiguous()
+
+
+def smooth_full_width(raw: torch.Tensor, spec: KernelSpec, n_space: int,
+                      chunk_rows: int | None = None) -> torch.Tensor:
+    """K5 on the whole plane: raw maps [C, bufH+1, S] (S = n_space * W_loc;
+    rows 0 and bufH zero) -> smoothed rows [C, bufH-1, S], each row's
+    ``n_space`` column shards smoothed apart with halo exchanges."""
+    if raw.dim() != 3 or raw.dtype != spec.acc_dtype:
+        raise ValueError(f"chunked smoothing: raw must be [C, bufH+1, S] "
+                         f"{spec.acc_dtype}, got {tuple(raw.shape)} {raw.dtype}")
+    if raw.device.type == "cpu":
+        n = n_space
+        sm = smooth_sharded_chunked_plain(_shards(raw, n), spec, chunk_rows)
+        return _unshard(sm)
     from sangnom_tpu_torch.parallel import shard_kernel
 
-    return _chunked(raw, spec, chunk_rows, shard_kernel.smooth_chunk)
+    return shard_kernel.smooth_pass(raw.contiguous(), spec, n_space, chunk_rows)
+
+
+def _chunked_route(kept, offsets, aaf, spec, n_space, plane_width, chunk_rows):
+    from sangnom_tpu_torch.parallel import shard_kernel
+
+    N, bufH, S = kept.shape
+    kept = kept.contiguous()
+    raw = shard_kernel.prepare(kept, spec, S if plane_width is None else plane_width)
+    sm = shard_kernel.smooth_pass(raw.view(_MAPS * N, bufH + 1, S), spec, n_space,
+                                  chunk_rows)
+    del raw
+    return shard_kernel.finalize(kept, sm.view(_MAPS, N, bufH - 1, S), aaf, spec, offsets)
+
+
+def _chunked_route_plain(kept, offsets, aaf, spec, n_space, plane_width, chunk_rows):
+    from sangnom_tpu_torch.parallel.width_sharded import (
+        finalize_chunked_plain, prepare_chunked_plain)
+
+    N, bufH, S = kept.shape
+    raw = prepare_chunked_plain(kept, spec, n_space, plane_width)
+    sm = _unshard(smooth_sharded_chunked_plain(
+        _shards(raw.view(_MAPS * N, bufH + 1, S), n_space), spec, chunk_rows))
+    return finalize_chunked_plain(kept, sm.view(_MAPS, N, bufH - 1, S), aaf, spec,
+                                  n_space, offsets)
+
+
+def interpolate_chunked(kept: torch.Tensor, aaf, spec: KernelSpec, n_space: int,
+                        plane_width: int | None = None,
+                        chunk_rows: int | None = None) -> torch.Tensor:
+    """The chunked route on a CUDA tensor: kept fields [N, bufH, S] ->
+    interpolated rows [N, bufH-1, S] by three launches a plane pass, the
+    prepare kernel (raw maps [9, N, bufH+1, S]), K5 and the finalize
+    kernel."""
+    return _chunked_route(kept, None, aaf, spec, n_space, plane_width, chunk_rows)
+
+
+def deinterlace_chunked(kept: torch.Tensor, offsets: Offset, aaf, spec: KernelSpec,
+                        n_space: int, plane_width: int | None = None,
+                        chunk_rows: int | None = None) -> torch.Tensor:
+    """The chunked route's weave on a CUDA tensor: kept fields [N, bufH, S]
+    -> the woven plane [N, 2*bufH, S] (``offsets`` 0, 1 or per frame),
+    written by the finalize kernel."""
+    return _chunked_route(kept, _offsets(offsets, kept), aaf, spec, n_space,
+                          plane_width, chunk_rows)
+
+
+def interpolate_chunked_plain(kept, aaf, spec, n_space, plane_width=None, chunk_rows=None):
+    """Plain version of `interpolate_chunked`: its three stages' plain
+    twins (``width_sharded.prepare_chunked_plain``, the plain chunk loop on
+    the whole plane, ``width_sharded.finalize_chunked_plain``)."""
+    return _chunked_route_plain(kept, None, aaf, spec, n_space, plane_width, chunk_rows)
+
+
+def deinterlace_chunked_plain(kept, offsets, aaf, spec, n_space, plane_width=None,
+                              chunk_rows=None):
+    """Plain version of `deinterlace_chunked`."""
+    return _chunked_route_plain(kept, _offsets(offsets, kept), aaf, spec, n_space,
+                                plane_width, chunk_rows)
 
 
 # --- K4: fused prepare + smoothing + finalize ---------------------------------
 
-def chunk_geometry_k4(W_loc: int, n_tot: int, chunk_rows: int = 16):
-    """(R, HALO): rows per chunk and the halo width of the fused kernel."""
-    R = max(1, min(chunk_rows, n_tot, (W_loc - 6) // 3))
+def chunk_geometry_k4(W_loc: int, n_tot: int, chunk_rows: int | None = None):
+    """(R, HALO): rows per chunk and the halo width of the plain fused step
+    (``chunk_rows`` None: ``PLAIN_ROWS``)."""
+    R = max(1, min(chunk_rows or PLAIN_ROWS, n_tot, (W_loc - 6) // 3))
     return R, 3 * R + 6
 
 
@@ -189,16 +283,11 @@ def _full_chunk_plain(keptx, smx, out, offsets, base: int, steps: int,
 
 
 def _fused_full(kept: torch.Tensor, aaf, spec: KernelSpec, n_space: int,
-                plane_width: int | None, chunk_rows: int, offsets, step):
+                plane_width: int | None, chunk_rows: int | None, offsets):
     N, bufH, S = kept.shape
     W_loc = S // n_space
-    if S % n_space or W_loc < 9:
-        raise ValueError(f"fused sharded kernel: width {S} over {n_space} shards "
-                         "needs shards of at least 9 columns")
     weave = offsets is not None
     n_steps = bufH - 1
-    if n_steps <= 0:
-        raise ValueError("fused sharded kernel: needs at least 2 kept rows")
     w_glob = S if plane_width is None else plane_width
     # the weave covers one more global step than interpolation, for the
     # last kept row
@@ -211,12 +300,12 @@ def _fused_full(kept: torch.Tensor, aaf, spec: KernelSpec, n_space: int,
                      device=kept.device)
     for base in range(0, n_tot, R):
         smx = _exchange_halo(sm, HALO, "carry")
-        sm = step(keptx, smx, out, offsets, base, min(R, n_tot - base), HALO,
-                  w_glob, aaf, spec)
+        sm = _full_chunk_plain(keptx, smx, out, offsets, base, min(R, n_tot - base),
+                               HALO, w_glob, aaf, spec)
     return out
 
 
-def _check_kept(kept: torch.Tensor, spec: KernelSpec) -> None:
+def _check_kept(kept: torch.Tensor, spec: KernelSpec, n_space: int) -> None:
     want = torch.float32 if spec.is_float else (
         torch.uint8 if spec.mask == 0xFF else torch.uint16)
     if kept.dim() != 3 or kept.dtype != want:
@@ -224,6 +313,12 @@ def _check_kept(kept: torch.Tensor, spec: KernelSpec) -> None:
                          f"got {tuple(kept.shape)} {kept.dtype}")
     if not kept.is_contiguous():
         raise ValueError("fused sharded kernel: kept must be contiguous")
+    N, bufH, S = kept.shape
+    if S % n_space or S // n_space < 9:
+        raise ValueError(f"fused sharded kernel: width {S} over {n_space} shards "
+                         "needs shards of at least 9 columns")
+    if bufH < 2:
+        raise ValueError("fused sharded kernel: needs at least 2 kept rows")
 
 
 def _offsets(offsets: Offset, kept: torch.Tensor):
@@ -239,29 +334,28 @@ def _offsets(offsets: Offset, kept: torch.Tensor):
 
 
 def _full(kept, offsets, aaf, spec, n_space, plane_width, chunk_rows, plain):
-    _check_kept(kept, spec)
+    _check_kept(kept, spec, n_space)
     if plain or kept.device.type == "cpu":
-        step = _full_chunk_plain
-    else:
-        from sangnom_tpu_torch.parallel import shard_kernel
+        return _fused_full(kept, aaf, spec, n_space, plane_width, chunk_rows, offsets)
+    from sangnom_tpu_torch.parallel import shard_kernel
 
-        step = shard_kernel.full_chunk
-    return _fused_full(kept, aaf, spec, n_space, plane_width, chunk_rows,
-                       offsets, step)
+    w_glob = kept.shape[2] if plane_width is None else plane_width
+    return shard_kernel.full_pass(kept, offsets, aaf, spec, n_space, w_glob, chunk_rows)
 
 
 def interpolate_fused_full(kept: torch.Tensor, aaf, spec: KernelSpec,
                            n_space: int, plane_width: int | None = None,
-                           chunk_rows: int = 16) -> torch.Tensor:
+                           chunk_rows: int | None = None) -> torch.Tensor:
     """Kept fields [N, bufH, S] (storage dtype, contiguous) -> interpolated
     rows [N, bufH-1, S], over ``n_space`` column shards of at least 9
-    columns: one kept exchange in the storage dtype, then one K4 launch and
-    one carry exchange per chunk of R rows."""
+    columns: on the card one K4 launch (a chunk of R rows per launch above
+    ``shard_kernel.MAX_CLUSTER`` shards); the plain version makes one kept
+    exchange, then one chunk and one carry exchange per R rows."""
     return _full(kept, None, aaf, spec, n_space, plane_width, chunk_rows, False)
 
 
 def interpolate_fused_full_plain(kept, aaf, spec, n_space, plane_width=None,
-                                 chunk_rows=16):
+                                 chunk_rows=None):
     """Plain version of `interpolate_fused_full`."""
     return _full(kept, None, aaf, spec, n_space, plane_width, chunk_rows, True)
 
@@ -269,7 +363,7 @@ def interpolate_fused_full_plain(kept, aaf, spec, n_space, plane_width=None,
 def deinterlace_fused_full(kept: torch.Tensor, offsets: Offset, aaf,
                            spec: KernelSpec, n_space: int,
                            plane_width: int | None = None,
-                           chunk_rows: int = 16) -> torch.Tensor:
+                           chunk_rows: int | None = None) -> torch.Tensor:
     """The sharded weave: kept fields [N, bufH, S] -> the complete plane
     [N, 2*bufH, S], kept and interpolated rows interleaved per ``offsets``
     (an int 0/1, or a per-frame [N] tensor of 0/1) with the boundary line
@@ -279,7 +373,7 @@ def deinterlace_fused_full(kept: torch.Tensor, offsets: Offset, aaf,
 
 
 def deinterlace_fused_full_plain(kept, offsets, aaf, spec, n_space,
-                                 plane_width=None, chunk_rows=16):
+                                 plane_width=None, chunk_rows=None):
     """Plain version of `deinterlace_fused_full`."""
     return _full(kept, _offsets(offsets, kept), aaf, spec, n_space,
                  plane_width, chunk_rows, True)

@@ -143,6 +143,20 @@ def _sharded_interp(smooth: str, n_space: int):
 
         fused_weave.sharded = n_space
         interp_fn.fused_weave = fused_weave
+    elif smooth == "chunked":
+        # on the card the finalize kernel weaves; elsewhere interpolate, then
+        # weave, as the unwoven path does
+        from sangnom_tpu_torch.ops.sangnom import weave_assemble
+        from sangnom_tpu_torch.parallel.fused_smooth import deinterlace_chunked
+
+        def chunked_weave(kept, offsets, aaf, spec, stride, plane_width=None):
+            if kept.device.type == "cuda":
+                return deinterlace_chunked(kept, offsets, aaf, spec, n_space, plane_width)
+            return weave_assemble(kept, interp_fn(kept, aaf, spec, stride, plane_width),
+                                  offsets)
+
+        chunked_weave.sharded = n_space
+        interp_fn.fused_weave = chunked_weave
     return interp_fn
 
 

@@ -111,6 +111,61 @@ def smooth_sharded_scan(raw: torch.Tensor, spec: KernelSpec) -> torch.Tensor:
     return sm.permute(1, 2, 0, 3)
 
 
+def _taps_shards(kept: torch.Tensor, spec: KernelSpec, n_space: int):
+    """Each shard's pixel taps of every kept pair, from one 3-column kept
+    exchange: (taps, preds) [n, N, bufH-1, W_loc] each."""
+    local = _shards(kept.to(spec.acc_dtype), n_space)  # [n, N, bufH, W_loc]
+    keptx = _exchange_halo(local, 3, "kept")  # one exchange for pixel taps
+    return _pair_taps_halo(keptx[:, :, :-1], keptx[:, :, 1:], local.shape[-1], spec)
+
+
+def _raw_shards(taps, preds, n_space: int, plane_width: int | None) -> torch.Tensor:
+    """The 9 raw maps [n, 9, N, bufH+1, W_loc] of the kept pairs: zero rows
+    0 and bufH, zero at global columns >= ``plane_width``."""
+    maps = error_maps_from_taps(taps, preds)  # [9, n, N, bufH-1, W_loc]
+    _, n, N, rows, w_loc = maps.shape
+    if plane_width is not None:
+        # zero-defined raw padding beyond the TRUE plane width (global cols)
+        gcol = torch.arange(n * w_loc, device=maps.device).view(1, n, 1, 1, w_loc)
+        maps = maps.masked_fill(gcol >= plane_width, 0)
+    raw = maps.new_zeros((n, 9, N, rows + 2, w_loc))  # zero rows 0, bufH
+    raw[:, :, :, 1:rows + 1] = maps.transpose(0, 1)
+    return raw
+
+
+def prepare_chunked_plain(kept: torch.Tensor, spec: KernelSpec, n_space: int,
+                          plane_width: int | None = None) -> torch.Tensor:
+    """Plain version of the chunked route's prepare kernel
+    (``shard_kernel.prepare``): kept fields [N, bufH, S] -> raw maps
+    [9, N, bufH+1, S] in the accumulator dtype."""
+    taps, preds = _taps_shards(kept, spec, n_space)
+    raw = _raw_shards(taps, preds, n_space, plane_width)
+    n, _, N, rows, w_loc = raw.shape
+    return raw.permute(1, 2, 3, 0, 4).reshape(9, N, rows, n * w_loc)
+
+
+def _finalize_shards(taps, preds, bufs, aaf, spec, out_dtype) -> torch.Tensor:
+    """The priority select from per-shard taps and smoothed maps ``bufs``
+    [9, n, N, bufH-1, W_loc] -> interpolated rows [N, bufH-1, S]."""
+    res = finalize_select_from_taps(taps, preds, bufs, aaf, spec)
+    return _unshard(res).to(out_dtype)
+
+
+def finalize_chunked_plain(kept: torch.Tensor, sm: torch.Tensor, aaf, spec: KernelSpec,
+                           n_space: int, offsets=None) -> torch.Tensor:
+    """Plain version of the chunked route's finalize kernel
+    (``shard_kernel.finalize``): kept fields [N, bufH, S] and smoothed maps
+    [9, N, bufH-1, S] -> interpolated rows [N, bufH-1, S] (kept's dtype),
+    or with ``offsets`` the woven plane [N, 2*bufH, S]."""
+    from sangnom_tpu_torch.ops.sangnom import weave_assemble
+
+    N, bufH, S = kept.shape
+    taps, preds = _taps_shards(kept, spec, n_space)
+    bufs = sm.reshape(9, N, bufH - 1, n_space, S // n_space).permute(0, 3, 1, 2, 4)
+    interp = _finalize_shards(taps, preds, bufs, aaf, spec, kept.dtype)
+    return interp if offsets is None else weave_assemble(kept, interp, offsets)
+
+
 def interpolate_field_width_sharded(
     kept: torch.Tensor, aaf, spec: KernelSpec, n_space: int,
     plane_width: int | None = None, smooth: str = "scan",
@@ -123,12 +178,12 @@ def interpolate_field_width_sharded(
     ``smooth``: "scan" = a 3-column halo exchange per row around the shared
     `smooth_scan` (the parity target); "chunked" = K5 smoothing
     (fused_smooth.smooth_sharded_chunked) between plain prepare and
-    finalize; "fused" / "fused_noweave" = K4, prepare + smoothing +
-    finalize in one kernel per chunk of R rows (fused_smooth.
+    finalize, and on the card the prepare kernel, K5 and the finalize
+    kernel (fused_smooth.interpolate_chunked); "fused" / "fused_noweave" =
+    K4, prepare + smoothing + finalize in one kernel (fused_smooth.
     interpolate_fused_full).  K4 needs shards of at least 9 columns and
     K5 more than 6; thinner shards take the next arm down.
     """
-    out_dtype = kept.dtype
     N, bufH, S = kept.shape
     w_loc = S // n_space
     if smooth in ("fused", "fused_noweave") and bufH >= 2 and w_loc >= 9:
@@ -137,20 +192,15 @@ def interpolate_field_width_sharded(
         return interpolate_fused_full(kept, aaf, spec, n_space, plane_width)
     if bufH < 2:
         return kept.new_zeros((N, 0, S))
-    local = _shards(kept.to(spec.acc_dtype), n_space)  # [n, N, bufH, W_loc]
-    keptx = _exchange_halo(local, 3, "kept")  # one exchange for pixel taps
-    taps, preds = _pair_taps_halo(keptx[:, :, :-1], keptx[:, :, 1:], w_loc, spec)
+    chunked = smooth in ("chunked", "fused", "fused_noweave") and w_loc > 6
+    if chunked and kept.device.type == "cuda":
+        from sangnom_tpu_torch.parallel.fused_smooth import interpolate_chunked
 
-    maps = error_maps_from_taps(taps, preds)  # [9, n, N, bufH-1, W_loc]
-    if plane_width is not None:
-        # zero-defined raw padding beyond the TRUE plane width (global cols)
-        gcol = torch.arange(S, device=kept.device).view(1, n_space, 1, 1, w_loc)
-        maps = maps.masked_fill(gcol >= plane_width, 0)
-    raw = maps.new_zeros((n_space, 9, N, bufH + 1, w_loc))  # zero rows 0, bufH
-    raw[:, :, :, 1:bufH] = maps.transpose(0, 1)
-    del maps
+        return interpolate_chunked(kept, aaf, spec, n_space, plane_width)
+    taps, preds = _taps_shards(kept, spec, n_space)
+    raw = _raw_shards(taps, preds, n_space, plane_width)
 
-    if smooth in ("chunked", "fused", "fused_noweave") and w_loc > 6:
+    if chunked:
         # "fused" lands here only for the thin-shard fallback above
         from sangnom_tpu_torch.parallel.fused_smooth import smooth_sharded_chunked
 
@@ -160,5 +210,4 @@ def interpolate_field_width_sharded(
     sm = smoother(raw.view(n_space, 9 * N, bufH + 1, w_loc), spec)
     bufs = sm.reshape(n_space, 9, N, bufH - 1, w_loc).transpose(0, 1)
     del raw
-    res = finalize_select_from_taps(taps, preds, bufs, aaf, spec)
-    return _unshard(res).to(out_dtype)
+    return _finalize_shards(taps, preds, bufs, aaf, spec, kept.dtype)

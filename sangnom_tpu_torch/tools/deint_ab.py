@@ -25,35 +25,11 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
-import os
-import re
-import subprocess
 import sys
 from pathlib import Path
 
-HERE = Path(__file__).resolve().parents[2]  # this checkout
-
 # case -> serial row steps of one launch (None: a whole call)
 CASES = {"bob luma": 539, "bob U/V": 269, "no-weave luma": 539, "bob call": None}
-
-
-def ptxas_report(tree: Path) -> list[str]:
-    """Build ``tree``'s kernel library with ptxas -v; registers and spills of
-    each deint_kernel instantiation (template arguments as mangled)."""
-    code = "from sangnom_tpu_torch.ops import deint_kernel as dk; dk.build(verbose=True)"
-    p = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
-                       text=True, env={**os.environ, "PYTHONPATH": str(tree)})
-    if p.returncode:
-        raise SystemExit(f"build failed in {tree}:\n{p.stderr[-6000:]}")
-    out, fn = [], None
-    for line in p.stdout.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            fn = m.group(1)
-        elif fn and "deint_kernel" in fn and ("Used" in line or "spill" in line):
-            args = re.search(r"deint_kernelI(\w+?)EEv", fn)
-            out.append(f"{args.group(1) if args else fn}: {line.split(':', 1)[-1].strip()}")
-    return out
 
 
 def worker(reps: int, route: str | None) -> dict:
@@ -122,17 +98,6 @@ def worker(reps: int, route: str | None) -> dict:
     return {"device": torch.cuda.get_device_name(0), "cases": res}
 
 
-def run_worker(tree: Path, reps: int, route: str | None) -> dict:
-    cmd = [sys.executable, str(Path(__file__).resolve()), "--worker", "--reps", str(reps)]
-    if route:
-        cmd += ["--route", route]
-    p = subprocess.run(cmd, cwd=tree, capture_output=True, text=True,
-                       env={**os.environ, "PYTHONPATH": str(tree)})
-    if p.returncode:
-        raise SystemExit(f"worker in {tree} failed:\n{p.stderr[-6000:]}")
-    return json.loads(p.stdout.strip().splitlines()[-1])
-
-
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other", nargs="?", type=Path)
@@ -146,33 +111,23 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if a.other is None:
         ap.error("OTHER_CHECKOUT is required")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
+    # imported here, not at the top: a worker runs this file against the
+    # other checkout's package, which may not have it
+    from sangnom_tpu_torch.tools import ab
+    from sangnom_tpu_torch.tools.ab import HERE
+
+    card = ab.card()
     trees = {"other": a.other.resolve(), "this": HERE, "single": HERE}
     for tag in ("other", "this"):
-        for line in ptxas_report(trees[tag]):
+        for line in ab.ptxas_report(trees[tag], r"(deint_kernel)I(\w+?)EEv"):
             print(f"[ptxas {tag}] {line}", flush=True)
-    ms = {tag: {c: [] for c in CASES} for tag in trees}
-    sha = {}
-    order = ["other", "this", "single"]
-    for r in range(a.rounds):
-        for tag in order + order[::-1]:
-            got = run_worker(trees[tag], a.reps, "single" if tag == "single" else None)
-            for c, v in got["cases"].items():
-                ms[tag][c] += v["ms"]
-                if sha.setdefault(c, v["sha256"]) != v["sha256"]:
-                    raise SystemExit(f"{c}: the {tag} arm's output differs")
-    summary = {}
-    for c, steps in CASES.items():
-        best = {tag: min(ms[tag][c]) for tag in trees}
-        summary[c] = best
-        step = "" if steps is None else "; row step us " + ", ".join(
-            f"{tag} {best[tag] / steps * 1e3:.3f}" for tag in trees)
-        print(f"[ab] {c}: " + ", ".join(f"{tag} {best[tag]:.4f} ms" for tag in trees)
-              + f"; factor other/this {best['other'] / best['this']:.3f}{step}; outputs "
-              f"bit-equal | {card}", flush=True)
-    print(json.dumps({"card": card, "best_ms": summary, "windows_ms": ms}))
+
+    def work(tag):
+        route = ["--route", "single"] if tag == "single" else []
+        return ab.run_worker(__file__, trees[tag], ["--reps", str(a.reps), *route])
+
+    ms = ab.run_turns(["other", "this", "single"], a.rounds, work)
+    ab.report(ms, CASES, card)
     return 0
 
 

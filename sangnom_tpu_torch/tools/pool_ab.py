@@ -29,39 +29,14 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
-import os
-import re
-import subprocess
 import sys
 from pathlib import Path
-
-HERE = Path(__file__).resolve().parents[2]  # this checkout
 
 ARMS = {"K3": (False, False), "K6": (True, False), "K7": (False, True)}
 CALLS = ("bob1080", "hd720", "sd480")
 # case -> serial row steps of one launch (None: a call, ms per output frame)
 CASES = {"K3 luma": 539, "K7 luma": 539, "K7 chroma": 539,
          **{f"{c}/{a}": None for c in CALLS for a in ARMS}}
-
-
-def ptxas_report(tree: Path) -> list[str]:
-    """Build ``tree``'s kernel library with ptxas -v; registers and spills of
-    each pool kernel instantiation (template arguments as mangled)."""
-    code = "from sangnom_tpu_torch.ops import deint_kernel as dk; dk.build(verbose=True)"
-    p = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
-                       text=True, env={**os.environ, "PYTHONPATH": str(tree)})
-    if p.returncode:
-        raise SystemExit(f"build failed in {tree}:\n{p.stderr[-6000:]}")
-    out, fn = [], None
-    for line in p.stdout.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            fn = m.group(1)
-        elif fn and "pool_" in fn and ("Used" in line or "spill" in line):
-            name = re.search(r"(pool_[a-z0-9]+_kernel)I(\w+?)EEv", fn)
-            head = f"{name.group(1)}<{name.group(2)}>" if name else fn
-            out.append(f"{head}: {line.split(':', 1)[-1].strip()}")
-    return out
 
 
 def worker(reps: int) -> dict:
@@ -150,15 +125,6 @@ def worker(reps: int) -> dict:
     return {"device": torch.cuda.get_device_name(0), "cases": res}
 
 
-def run_worker(tree: Path, reps: int) -> dict:
-    cmd = [sys.executable, str(Path(__file__).resolve()), "--worker", "--reps", str(reps)]
-    p = subprocess.run(cmd, cwd=tree, capture_output=True, text=True,
-                       env={**os.environ, "PYTHONPATH": str(tree)})
-    if p.returncode:
-        raise SystemExit(f"worker in {tree} failed:\n{p.stderr[-6000:]}")
-    return json.loads(p.stdout.strip().splitlines()[-1])
-
-
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other", nargs="?", type=Path)
@@ -171,35 +137,21 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if a.other is None:
         ap.error("OTHER_CHECKOUT is required")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
+    # imported here, not at the top: a worker runs this file against the
+    # other checkout's package, which may not have it
+    from sangnom_tpu_torch.tools import ab
+    from sangnom_tpu_torch.tools.ab import HERE
+
+    card = ab.card()
     trees = {"other": a.other.resolve(), "this": HERE}
     for tag in trees:
-        for line in ptxas_report(trees[tag]):
+        for line in ab.ptxas_report(trees[tag], r"(pool_[a-z0-9]+_kernel)I(\w+?)EEv"):
             print(f"[ptxas {tag}] {line}", flush=True)
-    ms = {tag: {c: [] for c in CASES} for tag in trees}
-    sha = {}
-    order = ["other", "this"]
-    for _ in range(a.rounds):
-        for tag in order + order[::-1]:
-            got = run_worker(trees[tag], a.reps)
-            for c, v in got["cases"].items():
-                ms[tag][c] += v["ms"]
-                key = c.split("/")[0]  # every arm of a call gives one output
-                if sha.setdefault(key, v["sha256"]) != v["sha256"]:
-                    raise SystemExit(f"{c}: the {tag} checkout's output differs")
-    summary = {}
-    for c, steps in CASES.items():
-        best = {tag: min(ms[tag][c]) for tag in trees}
-        summary[c] = best
-        unit = "ms" if steps else "ms/output frame"
-        step = "" if steps is None else "; row step us " + ", ".join(
-            f"{tag} {best[tag] / steps * 1e3:.3f}" for tag in trees)
-        print(f"[ab] {c}: " + ", ".join(f"{tag} {best[tag]:.4f} {unit}" for tag in trees)
-              + f"; factor other/this {best['other'] / best['this']:.3f}{step}; outputs "
-              f"bit-equal | {card}", flush=True)
-    print(json.dumps({"card": card, "best_ms": summary, "windows_ms": ms}))
+    ms = ab.run_turns(
+        ["other", "this"], a.rounds,
+        lambda tag: ab.run_worker(__file__, trees[tag], ["--reps", str(a.reps)]),
+        sha_key=lambda c: c.split("/")[0])  # every arm of a call gives one output
+    ab.report(ms, CASES, card, unit=lambda c: "ms" if CASES[c] else "ms/output frame")
     return 0
 
 

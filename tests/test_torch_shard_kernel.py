@@ -7,7 +7,10 @@ exchange per row around the shared ``smooth_scan``) over chunk sizes, shard
 counts 1-8 (thin shards included), the three weave modes and the formats,
 and the exchanges are counted against their formulas: one kept exchange
 plus ceil(n_tot / R) carry exchanges per plane pass for K4, bufH-1 row
-exchanges plus one kept exchange for the scan.
+exchanges plus one kept exchange for the scan.  The kernels' launch
+geometry (``shard_kernel.full_plan`` / ``smooth_plan``: cluster or chunk
+route, halo, shared bytes, launches) is checked here too, and the chunked
+route's plain stages against the route.
 
 The ``cuda`` cases launch the CUDA kernels and hold each against its plain
 version on the same CUDA tensors; they skip without a card.  This module
@@ -197,6 +200,120 @@ def test_wrappers_refuse_bad_input(k):
         call()
 
 
+# --- launch geometry -----------------------------------------------------------
+
+@pytest.mark.parametrize("W_c,cols,threads", [(9, 1, 32), (56, 1, 64), (64, 1, 96),
+                                              (65, 4, 32), (504, 4, 128), (576, 4, 160),
+                                              (2040, 4, 512), (2041, 8, 288),
+                                              (8184, 8, 1024)])
+def test_shard_shape(W_c, cols, threads):
+    """Whole groups of ``cols`` columns, plus 8 / cols threads for the 8
+    pad columns, in whole warps."""
+    assert sk.shard_shape(W_c) == (cols, threads)
+    assert -(-W_c // cols) + 8 // cols <= threads <= (512 if cols < 8 else 1024)
+
+
+def test_shard_shape_refuses_too_wide():
+    with pytest.raises(ValueError, match="at most 8184"):
+        sk.shard_shape(8185)
+
+
+@pytest.mark.parametrize("n,W_loc,steps,chunk_rows,want", [
+    (4, 480, 539, 16, (16, 48)), (4, 480, 539, 4, (4, 12)), (4, 247, 269, 1, (1, 3)),
+    (8, 9, 20, 16, (3, 9)), (2, 40, 2, 16, (2, 6)), (1, 1920, 539, 16, (16, 0)),
+    (4, 480, 539, None, (sk.CLUSTER_ROWS, 3 * sk.CLUSTER_ROWS))])
+def test_cluster_rows(n, W_loc, steps, chunk_rows, want):
+    """R = min(chunk_rows, rows, W_loc // 3), CLUSTER_ROWS for None; the
+    halo 3R <= W_loc, none for one shard."""
+    R, H = sk.cluster_rows(n, W_loc, steps, chunk_rows)
+    assert (R, H) == want and H <= W_loc
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 9, 12])
+def test_full_plan_route_and_launches(n):
+    """Up to MAX_CLUSTER shards: the cluster route, one launch a pass; above
+    it the chunk route, ceil((bufH-1) / R) launches; the shared bytes are the
+    route's buffers plus the cluster exchange's 2 x 2 x 9 x H words."""
+    W_loc, bufH = 12, 17
+    plan = sk.full_plan(n, W_loc, bufH, 1, 227 * 1024, chunk_rows=5)
+    R, H = sk.cluster_rows(n, W_loc, bufH - 1, 5)
+    assert (plan.R, plan.H) == (R, H) == (4, 12 if n > 1 else 0)
+    assert plan.cluster == (n <= sk.MAX_CLUSTER)
+    assert plan.launches == (1 if n <= sk.MAX_CLUSTER else math.ceil((bufH - 1) / R))
+    W_c = W_loc + min(n - 1, 2) * H
+    assert W_c == sk.block_width(n, W_loc, H)
+    assert (plan.cols, plan.threads) == sk.shard_shape(W_c)
+    assert plan.pitch_b >= W_c + plan.cols + 8 and plan.pitch_b % 4 == 0
+    assert plan.pitch_r >= W_c + plan.cols + 8 and plan.pitch_r % 16 == 0
+    xb = 2 * 2 * 9 * H * 4 if plan.cluster else 0
+    assert plan.route == "double"
+    assert plan.smem_bytes == (2 * 9 * plan.pitch_b * 4 + 9 * plan.pitch_p
+                               + 5 * plan.pitch_r + xb)
+
+
+def test_full_plan_falls_back_by_shared_memory():
+    """The 1x4 1080 luma pass fits the one-barrier route; narrower limits
+    take one smoothing row, then device-memory rows; too little raises."""
+    plan = sk.full_plan(4, 480, 540, 1, 227 * 1024)
+    assert (plan.route, plan.cluster, plan.launches) == ("double", True, 1)
+    assert plan.smem_bytes < 227 * 1024 // 4  # room for four blocks a SM
+    single = sk.full_plan(4, 480, 540, 1, plan.smem_bytes - 1)
+    assert single.route == "single"
+    glob = sk.full_plan(4, 480, 540, 1, single.smem_bytes - 1)
+    assert glob.route == "global" and glob.smem_bytes < single.smem_bytes
+    with pytest.raises(ValueError, match="exceeds shared memory"):
+        sk.full_plan(4, 480, 540, 1, 100)
+
+
+@pytest.mark.parametrize("n", [1, 4, 8, 10])
+def test_smooth_plan(n):
+    plan = sk.smooth_plan(n, 30, 13, 227 * 1024, chunk_rows=5)
+    R, H = sk.cluster_rows(n, 30, 12, 5)
+    W_c = sk.block_width(n, 30, H)
+    assert (plan.R, plan.H, plan.cols) == (R, H, sk.shard_shape(W_c)[0])
+    assert plan.launches == (1 if n <= sk.MAX_CLUSTER else math.ceil(12 / R))
+    assert plan.smem_bytes == 2 * plan.pitch_b * 4 + (16 * H if plan.cluster else 0)
+    with pytest.raises(ValueError, match="exceeds shared memory"):
+        sk.smooth_plan(n, 30, 13, 64)
+
+
+def test_unschedulable_cluster_raises():
+    """The launchers' "no cluster fits" code raises; it never reroutes."""
+    with pytest.raises(RuntimeError, match="a cluster of 4 blocks cannot be scheduled"):
+        sk.check_launch(None, -1, "sharded fused kernel launch", 4)
+
+
+@pytest.mark.parametrize("fmt_name,sse2", FORMATS, ids=str)
+@pytest.mark.parametrize("n,w_loc,short", [(1, 30, 0), (2, 20, 3), (4, 8, 5)])
+def test_chunked_route_stages_match_route(fmt_name, sse2, n, w_loc, short):
+    """The chunked route's plain stages (prepare twin, full-width smoothing,
+    finalize twin) == the CPU route and the scan arm."""
+    fmt, spec, aaf, rng = _setup(fmt_name, sse2, n * 7 + w_loc)
+    S = n * w_loc
+    kept = _kept(rng, fmt, 3, 9, S, short)
+    pw = S - short if short else None
+    want = ws.interpolate_field_width_sharded(kept, aaf, spec, n, pw, smooth="scan")
+    got = ws.interpolate_field_width_sharded(kept, aaf, spec, n, pw, smooth="chunked")
+    assert torch.equal(got, want)
+    for chunk_rows in (1, 16):
+        assert torch.equal(fs.interpolate_chunked_plain(kept, aaf, spec, n, pw, chunk_rows),
+                           want)
+    raw = ws.prepare_chunked_plain(kept, spec, n, pw)
+    assert raw.shape == (9, 3, 10, S) and raw.dtype == spec.acc_dtype
+    assert not raw[:, :, [0, 9]].any()
+    if short:
+        assert not raw[..., S - short:].any()
+
+
+@pytest.mark.parametrize("n,w_loc", K5_GEOMS, ids=str)
+def test_smooth_full_width_matches_shards(n, w_loc):
+    _, spec, _, rng = _setup("GRAY16", False, n + w_loc)
+    raw = _raw(rng, spec, n, 4, 9, w_loc)
+    want = fs.smooth_sharded_chunked(raw, spec, 5)
+    got = fs.smooth_full_width(ws._unshard(raw), spec, n, 5)
+    assert torch.equal(ws._shards(got, n), want)
+
+
 # --- on the card -----------------------------------------------------------
 
 @pytest.fixture
@@ -262,3 +379,97 @@ def test_sharded_entry_point_on_card(cuda):
         for smooth in ("fused", "chunked"):
             got = sangnom2_sharded(clip, mesh, space_axis="space", smooth=smooth, **kw)
             assert all(torch.equal(a, b) for a, b in zip(got.planes, want.planes)), (kw, smooth)
+
+
+# Card geometries beyond K4_GEOMS: 4- and 8-column blocks, and mesh rows
+# above the cluster limit (the chunk route).
+K4_CARD_GEOMS = [(2, 300, 11), (4, 70, 0), (1, 2100, 5), (9, 12, 1), (12, 9, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt_name,sse2", FORMATS, ids=str)
+@pytest.mark.parametrize("geom", K4_CARD_GEOMS, ids=str)
+def test_k4_routes_on_card(cuda, fmt_name, sse2, geom):
+    """K4 at 4- and 8-column blocks and above the cluster limit, bit-equal
+    to its plain version; one launch a pass on the cluster route, ceil((bufH
+    - 1) / R) on the chunk route."""
+    n, w_loc, short = geom
+    fmt, spec, aaf, rng = _setup(fmt_name, sse2, n * 100 + w_loc)
+    S = n * w_loc
+    bufH = 11
+    kept = _kept(rng, fmt, 3, bufH, S, short, cuda)
+    pw = S - short if short else None
+    for chunk_rows in (1, 5, 16):
+        plan = sk.full_plan(n, w_loc, bufH, kept.element_size(), 227 * 1024, chunk_rows)
+        for weave in WEAVES:
+            offs = _offsets(weave, 3, rng, cuda)
+            before = sk.LAUNCHES["full"]
+            got = _k4(kept, offs, aaf, spec, n, pw, chunk_rows, plain=False)
+            torch.cuda.synchronize()
+            assert sk.LAUNCHES["full"] - before == plan.launches
+            want = _k4(kept, offs, aaf, spec, n, pw, chunk_rows, plain=True)
+            assert torch.equal(got, want), (chunk_rows, weave)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt_name,sse2", FORMATS, ids=str)
+@pytest.mark.parametrize("geom", [(2, 300), (4, 70), (10, 12), (1, 2100)], ids=str)
+def test_k5_routes_on_card(cuda, fmt_name, sse2, geom):
+    """K5 on the whole plane at 4- and 8-column blocks and above the
+    cluster limit, bit-equal to the plain chunk loop."""
+    n, w_loc = geom
+    _, spec, _, rng = _setup(fmt_name, sse2, n * 10 + w_loc)
+    raw = _raw(rng, spec, n, 5, 12, w_loc)
+    full = ws._unshard(raw).contiguous().to(cuda)
+    for chunk_rows in (1, 5, 16):
+        plan = sk.smooth_plan(n, w_loc, 12, 227 * 1024, chunk_rows)
+        before = sk.LAUNCHES["smooth"]
+        got = fs.smooth_full_width(full, spec, n, chunk_rows)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES["smooth"] - before == plan.launches
+        want = ws._unshard(fs.smooth_sharded_chunked_plain(raw, spec, chunk_rows))
+        assert torch.equal(got.cpu(), want), chunk_rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt_name,sse2", FORMATS, ids=str)
+@pytest.mark.parametrize("geom", [(1, 30, 0), (4, 12, 7), (4, 247, 27), (8, 9, 2)], ids=str)
+def test_chunked_route_on_card(cuda, fmt_name, sse2, geom):
+    """The prepare and finalize kernels against their plain twins, and the
+    route (prepare, K5, finalize: one launch each) against its plain
+    version, with no weave and weave offsets 0 / 1 / per frame."""
+    n, w_loc, short = geom
+    fmt, spec, aaf, rng = _setup(fmt_name, sse2, n * 3 + w_loc)
+    S = n * w_loc
+    kept = _kept(rng, fmt, 4, 10, S, short, cuda)
+    pw = S - short if short else None
+    raw = sk.prepare(kept, spec, S - short)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, ws.prepare_chunked_plain(kept, spec, n, pw))
+    sm = (torch.rand((9, 4, 9, S), device=cuda) * 600).to(spec.acc_dtype)
+    assert torch.equal(sk.finalize(kept, sm, aaf, spec),
+                       ws.finalize_chunked_plain(kept, sm, aaf, spec, n))
+    for weave in WEAVES:
+        offs = _offsets(weave, 4, rng, cuda)
+        sk.reset_launches()
+        if offs is None:
+            got = fs.interpolate_chunked(kept, aaf, spec, n, pw)
+            want = fs.interpolate_chunked_plain(kept, aaf, spec, n, pw)
+        else:
+            got = fs.deinterlace_chunked(kept, offs, aaf, spec, n, pw)
+            want = fs.deinterlace_chunked_plain(kept, offs, aaf, spec, n, pw)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES == {"full": 0, "smooth": 1, "prepare": 1, "finalize": 1}
+        assert torch.equal(got, want), weave
+
+
+@pytest.mark.cuda
+def test_unschedulable_cluster_raises_on_card(cuda, monkeypatch):
+    """A cluster of 12 blocks (past the portable 8) is refused, and the call
+    raises instead of taking another route."""
+    fmt, spec, aaf, rng = _setup("GRAY8", False, 3)
+    kept = _kept(rng, fmt, 2, 8, 12 * 9, 0, cuda)
+    monkeypatch.setattr(sk, "MAX_CLUSTER", 32)
+    with pytest.raises(RuntimeError, match="sharded fused kernel launch"):
+        fs.interpolate_fused_full(kept, aaf, spec, 12)
+        torch.cuda.synchronize()

@@ -341,6 +341,50 @@ def test_entry_point_halo_exchanges(smooth):
     assert width_sharded.HALO_EXCHANGES == want
 
 
+@pytest.mark.parametrize("fmt_name,kw", [
+    ("YUV420P8", dict(order=1)),
+    ("GRAY16", dict(order=2, aa=128)),
+    ("GRAYS", dict(order=1)),
+], ids=["yuv420", "u16", "float"])
+def test_chunked_stages_match_jax(monkeypatch, fmt_name, kw):
+    """The chunked route's plain stages (the prepare twin, the chunk loop on
+    the whole plane, the finalize twin), put in place of the CPU route's
+    glue, == the JAX chunked arm (Pallas interpret mode), chroma included."""
+    from sangnom_tpu_torch.parallel import sharding
+
+    def staged(kept, aaf, spec, n_space, plane_width=None, smooth="scan"):
+        assert smooth == "chunked"
+        return fused_smooth.interpolate_chunked_plain(kept, aaf, spec, n_space, plane_width)
+
+    monkeypatch.setattr(sharding, "interpolate_field_width_sharded", staged)
+    jc, tc = _both(fmt_name, 64, 16, 2)
+    want = JP.sangnom2_sharded(jc, JP.default_mesh(data=1, space=4),
+                               space_axis="space", smooth="chunked", **kw)
+    got = sangnom2_sharded(tc, _mesh(1, 4), space_axis="space", smooth="chunked", **kw)
+    _same(want, got)
+
+
+@pytest.mark.parametrize("fmt_name,order,parity", [
+    ("GRAY8", 1, None), ("GRAY8", 2, None), ("GRAY16", 0, [True, False, True]),
+], ids=["offset0", "offset1", "per-frame"])
+def test_chunked_weave_stages_match_jax(fmt_name, order, parity):
+    """The chunked route's weave (the finalize twin writing the woven plane)
+    on a dh call's kept fields == the JAX chunked arm's output plane."""
+    from sangnom_tpu_torch.core.geometry import aaf_as_pixel, scaled_aa_thresholds
+    from sangnom_tpu_torch.ops.primitives import KernelSpec
+    from sangnom_tpu_torch.ops.sangnom import field_offsets
+
+    jc, tc = _both(fmt_name, 64, 16, 3, parity)
+    want = JP.sangnom2_sharded(jc, JP.default_mesh(data=1, space=4), space_axis="space",
+                               smooth="chunked", order=order, dh=True)
+    fmt = T.get_format(fmt_name)
+    spec = KernelSpec.from_format(fmt)
+    aaf = aaf_as_pixel(scaled_aa_thresholds(48, 0, fmt)[0], fmt)
+    offs = field_offsets(order, tc.parity if parity is not None else None, torch.device("cpu"))
+    got = fused_smooth.deinterlace_chunked_plain(tc.planes[0], offs, aaf, spec, 4)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want.planes[0]))
+
+
 def test_parallel_imports_no_jax():
     """The sharded path runs where JAX is absent: importing it and running a
     tiny width-sharded call on a CPU mesh loads neither jax nor sangnom_tpu."""
