@@ -849,8 +849,13 @@ def phase_shard_timing(clip_dh, woven, card, details):
         for key in ("dh/K4/space4", "dh/K5/space4"):
             others[key] = sorted((k, n) for k, n, _ in profiles[key]["all"]
                                  if not any(o in k for o in own))
-        mine = {o: sum(n for k, n, _ in profiles["dh/K5/space4"]["all"] if o in k)
-                for o in own}
+        # the route's launches in one call by its wrappers' counts, which are
+        # exact: the profiler's trace has dropped a U+V pass's launch
+        before = dict(sk.LAUNCHES)
+        fn("K5/space4", "dh")()
+        torch.cuda.synchronize()
+        mine = {o: sk.LAUNCHES[k] - before[k]
+                for o in own for k in [o.removeprefix("shard_").removesuffix("_kernel")]}
         log(f"[11 shard profile] dh/K5/space4 route kernels (name: launches): {mine}; "
             f"other kernels equal to the K4 call's: {others['dh/K4/space4'] == others['dh/K5/space4']}")
         # two plane passes (luma, U+V): one prepare, K5 and finalize each
@@ -938,14 +943,24 @@ def probe_src():
         DEVICE, torch.int32)
 
 
+def plan_line(plan) -> str:
+    """A K8 / K9 launch plan (``tools.probe_kernel.Plan``) in one phrase."""
+    return (f"C {plan.cols}, {plan.threads} threads x {plan.blocks} blocks, route "
+            f"{plan.route}, {plan.exchanges} exchanges and {plan.barriers} barriers an "
+            f"iteration, {plan.smem_bytes} shared bytes")
+
+
 def phase_probe_matrix(details):
     """K8, K9 and K10 vs their plain versions on CUDA tensors: every K8 arm
     at full [120, 2048], 4 steps, at the differential's long chain; K9's
-    default arms (bigslab@1 must raise) and every other arm once; K10 at the
-    probe's shape and at 540 x 1920 over 542 steps, u8 and i32.  Returns
+    default arms (bigslab@1 must raise), every other arm once, ramt130@2 (the
+    whole-line route), ramt2047@2 (a shuffle) and bigslab_iota@1; K10 at
+    the probe's shape and at 540 x 1920 over 542 steps, u8 and i32.  Prints
+    each K8 arm's and K9 default arm's launch plan.  Returns
     {kernel: (cases, max_abs_err)}; any difference raises."""
     from sangnom_tpu_torch.tools import calibrate_vpu as cv
     from sangnom_tpu_torch.tools import isolate_step as iso
+    from sangnom_tpu_torch.tools import probe_kernel as prk
     from sangnom_tpu_torch.tools import probe_pool_dynrow as dyn
 
     src = probe_src()
@@ -960,14 +975,15 @@ def phase_probe_matrix(details):
         res[key][0] += 1
 
     for kind in cv.OPS_PER_ITER:
+        log(f"[12 plan] K8 {kind} at [120, 2048]: "
+            f"{plan_line(prk.line_plan(kind, 2048))}")
         k = cv.chain_lengths(kind)[1]
         got = cv.run(src, kind, k, steps=4)
-        want = cv.run_plain(src, kind, k, steps=4)
         if kind in cv.TRANSPOSED and got[:, :, 120:].any():
             raise AssertionError(f"K8 {kind}: columns 120..127 not zero")
-        check("K8", got, want, f"{kind} k={k}")
+        check("K8", got, cv.run_plain(src, kind, k, steps=4), f"{kind} k={k}")
     arms = list(iso.DEFAULT_ARMS) + [f"{k}@1" for k in iso.KINDS if k != "bigslab"]
-    for arm in arms + ["ramt130@2", "bigslab_iota@1"]:
+    for arm in arms + ["ramt130@2", "ramt2047@2", "bigslab_iota@1"]:
         kind, _, k = arm.partition("@")
         if kind == "bigslab":
             for fn in (iso.run, iso.run_plain):
@@ -977,6 +993,8 @@ def phase_probe_matrix(details):
                     continue
                 raise AssertionError(f"K9 bigslab@1 did not raise in {fn.__name__}")
             continue
+        if arm in iso.DEFAULT_ARMS:
+            log(f"[12 plan] K9 {arm}: {plan_line(prk.isolate_plan(kind))}")
         check("K9", iso.run(src, kind, int(k)), iso.run_plain(src, kind, int(k)), arm)
     for dtype in (np.uint8, np.int32):
         for H, S, steps in ((64, 256, 70), (540, 1920, 542)):
@@ -1039,34 +1057,72 @@ def predicted_k1_step(rates, luma_ms: float, card: str, details) -> dict:
     return out
 
 
+def shuffled(cols: int, *reach: int) -> float:
+    """Values a column takes from other lanes in a chain iteration, with C =
+    ``cols`` columns a thread, for rolls (and b's tap windows) that reach
+    ``reach`` columns: a roll by s renames registers for C - |s| of a
+    thread's C elements and shuffles the other |s|, so a column pays |s| / C
+    shuffles, not an operation.  A shuffle takes one issue slot as an add
+    does; the shuffle unit's own rate, a quarter of the issue rate, would
+    bind only past a quarter of the operations, which no probe reaches."""
+    return sum(reach) / cols
+
+
 def probe_timing(card, details) -> dict:
     """ms of one launch of each probe kernel and of its plain version on the
-    same inputs, with its bound: K8's mix arm (the kernel-shaped blend) at
-    [120, 2048], k 96, 32 steps; K9's unroll@12 (8 steps); K10 at 540 x 1920
-    u8 over 542 steps."""
+    same inputs, with its bound: K8 for one arm of each of its kernels at
+    [120, 2048] over 32 steps, mix (line_kernel, the kernel-shaped blend)
+    and mmbf16 (mm_kernel) at k 96, stepv (step_kernel) at k 12; K9's
+    unroll@12 (8 steps); K10 at 540 x 1920 u8 over 542 steps.  The K8 and
+    K9 cases print their launch plans.  Their operation bounds count what
+    the work needs: the adds, masks and shifts of each chain, and for each
+    roll only the shuffles of the plan's C (``shuffled``)."""
     from sangnom_tpu_torch.tools import calibrate_vpu as cv
     from sangnom_tpu_torch.tools import isolate_step as iso
+    from sangnom_tpu_torch.tools import probe_kernel as prk
     from sangnom_tpu_torch.tools import probe_pool_dynrow as dyn
+    from sangnom_tpu_torch.utils.cost_model import PEAK_BF16_S
 
     src = probe_src()
     G, W = src.shape
     kept = torch.from_numpy(dyn.probe_input(np.uint8, 540, 1920)).to(DEVICE)
     out_bytes = lambda steps: steps * G * 128 * 4  # noqa: E731
+    io = G * W * 4 + out_bytes(32)
+    # a slab's rolls by 1, 2 and 3 on 5 slabs, and b's window of 3 columns
+    # each side (6 shifted adds share it)
+    slab_and_taps = (1, 2, 3) * 5 + (3, 3)
+    c_mix, c_stepv = prk.line_plan("mix", W).cols, prk.line_plan("stepv", W).cols
+    c_k9 = prk.isolate_plan("unroll").cols
     cases = {
         "K8": (lambda: cv.run(src, "mix", 96, steps=32),
                lambda: cv.run_plain(src, "mix", 96, steps=32),
-               (G * W * 4 + out_bytes(32), 96 * 32 * G * W * cv.OPS_PER_ITER["mix"]),
-               "mix arm, [120, 2048] i32, k 96, 32 steps"),
-        # unroll: 3 roll+add pairs on 5 slabs and 6 shifted adds on b an iteration
+               # 7 counted ops an iteration, one of them the roll by 1
+               (io, 96 * 32 * G * W * (cv.OPS_PER_ITER["mix"] - 1 + shuffled(c_mix, 1))),
+               "mix arm, [120, 2048] i32, k 96, 32 steps", prk.line_plan("mix", W)),
+        # stepv: an add after each of 3 rolls, a sub, shift and mask on each of
+        # 5 slabs, 6 shifted adds and a mask on b, an iteration a column
+        "K8 stepv": (lambda: cv.run(src, "stepv", 12, steps=32),
+                     lambda: cv.run_plain(src, "stepv", 12, steps=32),
+                     (io, 12 * 32 * G * W * (5 * 6 + 7 + shuffled(c_stepv, *slab_and_taps))),
+                     "stepv arm, [120, 2048] i32, k 12, 32 steps", prk.line_plan("stepv", W)),
+        # mmbf16: z [G*W/128, 128] @ m [128, 128] an iteration on the tensor cores
+        "K8 mmbf16": (lambda: cv.run(src, "mmbf16", 96, steps=32),
+                      lambda: cv.run_plain(src, "mmbf16", 96, steps=32),
+                      (io, 96 * 32 * 2 * (G * W // 128) * 128 * 128, PEAK_BF16_S),
+                      "mmbf16 arm, [120, 2048] i32, k 96, 32 steps, bf16 tensor-core "
+                      "FLOPs over 989 TFLOP/s", prk.line_plan("mmbf16", W)),
+        # unroll: an add after each of 3 rolls on 5 slabs and 6 shifted adds on
+        # b an iteration
         "K9": (lambda: iso.run(src, "unroll", 12), lambda: iso.run_plain(src, "unroll", 12),
-               (G * W * 4 + out_bytes(8), 12 * 8 * G * W * (5 * 6 + 12)),
-               "unroll@12, [120, 2048] i32, 8 steps"),
+               (G * W * 4 + out_bytes(8),
+                12 * 8 * G * W * (5 * 3 + 6 + shuffled(c_k9, *slab_and_taps))),
+               "unroll@12, [120, 2048] i32, 8 steps", prk.isolate_plan("unroll")),
         "K10": (lambda: dyn.dynrow(kept, 542), lambda: dyn.dynrow_plain(kept, 542),
                 (540 * 1920 + 542 * 1920 * 4, 542 * 1920 * 5),
-                "540 x 1920 u8, 542 steps"),
+                "540 x 1920 u8, 542 steps", None),
     }
     res = {}
-    for key, (kern, plain, work, what) in cases.items():
+    for key, (kern, plain, work, what, plan) in cases.items():
         kern()
         plain()
         k_ms = min(cuda_ms(kern, 5) for _ in range(2))
@@ -1074,7 +1130,8 @@ def probe_timing(card, details) -> dict:
         b_ms, b_by = bound(*work)
         res[key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
         log(f"[13 probe timing] {key} ({what}): {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}) | {card}")
+            f"bound {b_ms:.4f} ms ({b_by}), {b_ms / k_ms:.3f} of it"
+            + (f"; plan {plan_line(plan)}" if plan else "") + f" | {card}")
     details["probe_kernel_ms"] = res
     return res
 

@@ -8,18 +8,33 @@
 //   K10 tools/archive/probe_pool_dynrow.py::_kernel: dynrow_kernel.
 //
 // The TPU ran each as a sequential grid of `steps` steps over scratch that
-// persists in VMEM.  Here one launch walks every step: each block owns an
-// independent part of the state and keeps it in registers (8 elements of a
-// line per thread, strided so that lanes touch neighbouring words) or in
-// shared memory, and writes out[t] at the end of step t.  A lane roll of the
-// TPU is a shift of a line held by many threads: the line is stored to
-// shared memory, one barrier, and each thread reads its shifted elements
-// (buffers alternate, so one barrier an exchange suffices).  The
-// permutation-matrix arms multiply on the tensor cores with mma.sync
+// persists in VMEM.  Here one launch walks every step: each block owns
+// independent lines of the state and keeps them in registers, and writes
+// out[t] at the end of step t.
+//
+// Layout (line_kernel, step_kernel, isolate_kernel): a thread owns C
+// contiguous columns of its line (a template parameter: 4 in line_kernel, 8
+// in isolate_kernel, 8 in step_kernel but 4 where a line of 8-column threads
+// would not be whole warps).  The launch plan is
+// tools/probe_kernel.line_plan / isolate_plan; each launcher holds it to the
+// grid the kernel's layout needs (line_grid, step_grid, ...).  A lane roll
+// of the TPU is a shift of the line by s columns.  Where |s| is small it
+// goes through registers and warp shuffles: element e takes its own element
+// e - s, and the |s| values that cross a lane boundary come from the
+// neighbouring lane (__shfl_sync).  A line that fits one warp wraps inside
+// the warp and needs no shared memory and no barrier.  A line of several
+// warps (one line a block) also trades each warp's |s| edge values through
+// a small double-buffered shared array behind one barrier; the last warp's
+// edge feeds the first.  Larger shifts (ramtN, trolladd8) store the whole
+// line to shared memory and read it back shifted, and vshift1/vshift6 (and
+// rollvshift's second chain) keep a shared store and a static-offset load
+// every iteration, which is what they measure; both take 16-byte windows.
+// The permutation-matrix arms multiply on the tensor cores with mma.sync
 // (bf16 -> f32, s8 -> s32), mmf32 on the FP32 cores.
 //
-// What bounds them: the dependent chains and the barriers, not bytes; each
-// probe reads its input once and writes [steps, 120, 128] int32.
+// What bounds them: the dependent chains, the shuffles and, for lines of
+// several warps, one barrier an exchange; not bytes: each probe reads its
+// input once and writes [steps, 120, 128] int32.
 //
 // Each iteration's values pass through an empty asm, so the compiler cannot
 // fold a chain (min and where chains collapse to their first step, add
@@ -39,9 +54,14 @@
 namespace {
 
 constexpr int kG = 120;  // rows of the probes' input slab
-constexpr int kE = 8;    // elements of a line per thread
+constexpr int kE = 8;    // mm_kernel: elements of mmroll's line a thread
 constexpr int kIsoW = 2048;
+constexpr int kLineC = 4;    // line_kernel: columns a thread
+constexpr int kIsoC = 8;     // isolate_kernel: columns a thread
+constexpr int kPad = 16;     // line_kernel: padded scratch columns past a line
+constexpr int kStepEW = 16;  // step_kernel: edge words a warp an exchange
 constexpr int32_t kMask = 0x00FF00FF;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
@@ -91,6 +111,173 @@ __device__ __forceinline__ uint32_t ld32(const void* p) {
   return *static_cast<const uint32_t*>(p);
 }
 
+// C contiguous int32 at p (16-byte aligned), as C/4 vector accesses.
+template <int C>
+__device__ __forceinline__ void ld_vec(const int32_t* p, int32_t v[C]) {
+#pragma unroll
+  for (int q = 0; q < C / 4; ++q) {
+    const int4 t = reinterpret_cast<const int4*>(p)[q];
+    v[4 * q] = t.x;
+    v[4 * q + 1] = t.y;
+    v[4 * q + 2] = t.z;
+    v[4 * q + 3] = t.w;
+  }
+}
+template <int C>
+__device__ __forceinline__ void st_vec(int32_t* p, const int32_t v[C]) {
+#pragma unroll
+  for (int q = 0; q < C / 4; ++q)
+    reinterpret_cast<int4*>(p)[q] = make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+}
+
+// ---- lines in registers: shuffles and warp edges -------------------------
+
+// A thread's place in its line of TL = n / C threads; it owns columns
+// t*C .. t*C + C-1.  TL <= 32 ("single"): the line is the first TL lanes of
+// a 16- or 32-lane segment of one warp, and shuffles wrap inside those TL
+// lanes.  TL > 32 (a multiple of 32): the line is a block of nw = TL / 32
+// warps; shuffles stay inside each warp, and the values that cross a warp's
+// edge are traded through shared memory (put_* before the barrier, get_*
+// after it).
+template <int C>
+struct Place {
+  int t, lane, warp, nw;
+  int sl[2], sr[2];  // source lanes 1 and 2 lanes to the left / right
+
+  __device__ Place(int tid, int TL) {
+    lane = tid & 31;
+    if (TL > 32) {
+      t = tid;
+      warp = tid >> 5;
+      nw = TL >> 5;
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        sl[d] = (lane - d - 1) & 31;
+        sr[d] = (lane + d + 1) & 31;
+      }
+    } else {
+      const int base = lane & (TL > 16 ? 0 : 16);
+      t = lane - base;
+      warp = 0;
+      nw = 1;
+      const int tt = t < TL ? t : 0;
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        sl[d] = base + (tt - d - 1 + 2 * TL) % TL;
+        sr[d] = base + (tt + d + 1) % TL;
+      }
+    }
+  }
+};
+
+// in[i] = the line's value at column t*C - S + i (circular), S <= 2C.  Lanes
+// at a warp's left edge of a multi-warp line get theirs from get_left.
+template <int C, int S>
+__device__ __forceinline__ void shfl_left(const Place<C>& P, const int32_t v[C], int32_t in[S]) {
+  static_assert(S <= 2 * C, "a shift reaches at most two lanes");
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const int o = S - i;
+    const int d = (o + C - 1) / C;
+    in[i] = __shfl_sync(kFull, v[d * C - o], P.sl[d - 1]);
+  }
+}
+// in[i] = the line's value at column t*C + C + i (circular), S <= 2C.
+template <int C, int S>
+__device__ __forceinline__ void shfl_right(const Place<C>& P, const int32_t v[C], int32_t in[S]) {
+  static_assert(S <= 2 * C, "a shift reaches at most two lanes");
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const int o = C + i;
+    in[i] = __shfl_sync(kFull, v[o % C], P.sr[o / C - 1]);
+  }
+}
+// The warp's last S values into eb[warp][S] (read by the next warp).  Up
+// to C values are the last lane's alone: S predicated stores, no branch.
+template <int C, int S>
+__device__ __forceinline__ void put_left(const Place<C>& P, const int32_t v[C], int32_t* eb) {
+  if constexpr (S <= C) {
+    if (P.lane == 31) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) eb[P.warp * S + i] = v[C - S + i];
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < C; ++e) {
+      const int q = P.lane * C + e - (32 * C - S);
+      if (q >= 0) eb[P.warp * S + q] = v[e];
+    }
+  }
+}
+// The previous warp's last S values, for the lanes whose left reach leaves
+// the warp.
+template <int C, int S>
+__device__ __forceinline__ void get_left(const Place<C>& P, int32_t in[S], const int32_t* eb) {
+  const int pw = (P.warp == 0 ? P.nw : P.warp) - 1;
+  if constexpr (S <= C) {
+    if (P.lane == 0) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) in[i] = eb[pw * S + i];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const int q = P.lane * C + i;
+      if (q < S) in[i] = eb[pw * S + q];
+    }
+  }
+}
+// The warp's first S values into eb[warp][S] (read by the previous warp).
+template <int C, int S>
+__device__ __forceinline__ void put_right(const Place<C>& P, const int32_t v[C], int32_t* eb) {
+  static_assert(S <= C, "right shifts reach one lane");
+  if (P.lane == 0) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) eb[P.warp * S + i] = v[i];
+  }
+}
+template <int C, int S>
+__device__ __forceinline__ void get_right(const Place<C>& P, int32_t in[S], const int32_t* eb) {
+  static_assert(S <= C, "right shifts reach one lane");
+  const int nx = P.warp + 1 == P.nw ? 0 : P.warp + 1;
+  if (P.lane == 31) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) in[i] = eb[nx * S + i];
+  }
+}
+
+// The L columns left and R columns right of a thread's own, for one
+// exchange: pre() before the barrier (shuffles, and the warp edges into
+// eb: L*nw words, then R*nw), post() after it.  at(v, c) is the value at
+// column t*C + c for -L <= c < C + R (c known at compile time).
+template <int C, int L, int R>
+struct Window {
+  int32_t l[L > 0 ? L : 1], r[R > 0 ? R : 1];
+
+  __device__ __forceinline__ void pre(const Place<C>& P, const int32_t v[C], int32_t* eb) {
+    if constexpr (L > 0) {
+      shfl_left<C, L>(P, v, l);
+      if (P.nw > 1) put_left<C, L>(P, v, eb);
+    }
+    if constexpr (R > 0) {
+      shfl_right<C, R>(P, v, r);
+      if (P.nw > 1) put_right<C, R>(P, v, eb + L * P.nw);
+    }
+  }
+  __device__ __forceinline__ void post(const Place<C>& P, const int32_t* eb) {
+    if (P.nw == 1) return;
+    if constexpr (L > 0) get_left<C, L>(P, l, eb);
+    if constexpr (R > 0) get_right<C, R>(P, r, eb + L * P.nw);
+  }
+  __device__ __forceinline__ int32_t at(const int32_t v[C], int c) const {
+    return c < 0 ? l[L + c] : c < C ? v[c] : r[c - C];
+  }
+};
+
+// The window a roll by SH reads: |SH| columns on the side it reads from.
+template <int C, int SH>
+using RollWindow = Window<C, (SH > 0 ? SH : 0), (SH < 0 ? -SH : 0)>;
+
 // ---- K10: three clamped rows a step --------------------------------------
 
 // One thread a column; rows (t, t+1, t+2) clamped at H-1 ride a register
@@ -138,89 +325,119 @@ __host__ __device__ constexpr int roll_shift(int a) {
          : a == kConcatRot ? -1 : 1;
 }
 
-// Integer and shift arms.  A block owns `lpb` lines of n elements: rows of
-// the [G, w] slab (n = w, lpb 1), or for roll_sub columns (n = G, lpb 8);
-// the transposed arms' lines are the rows of the input as well.  Thread t
-// of a line owns positions t + e*T.  Shared memory per line: two x buffers
-// and two u buffers of n + 128 words (the padded scratch's last 128 columns
-// hold seed[:, :128] for ever).  y restarts from seed ^ 0x55AA55 every step.
-template <int ARM>
-__global__ void __launch_bounds__(256)
+// Integer and shift arms.  A line is a row of the [G, w] slab (n = w), or
+// for roll_sub a column (n = G); the transposed arms' lines are the rows of
+// the input as well.  Lines of up to 32 threads share one-warp blocks (two
+// a warp when they take 16 lanes or fewer), longer lines take a block each.
+// x's roll goes through shuffles where |s| < C (route "shuffle"), else
+// through a whole-line shared buffer (trolladd8: "line"); vshift1/vshift6
+// (x) and rollvshift (u) store the line to a shared buffer whose 16 columns
+// past n hold seed[:, :16] for ever and read it back at a static offset
+// ("pad").  y restarts from seed ^ 0x55AA55 every step.
+template <int ARM, int C>
+__global__ void __launch_bounds__(kIsoW / C)
 line_kernel(const int32_t* __restrict__ src, int32_t* __restrict__ out, int w,
             int k, int steps) {
   constexpr bool SUB = ARM == kRollSub;
   constexpr int SH = roll_shift(ARM);
+  constexpr int A = SH < 0 ? -SH : SH;
+  constexpr bool VSH = ARM == kVshift1 || ARM == kVshift6;
+  constexpr bool XROLL = exchanges(ARM) && !VSH;
+  constexpr bool XSHUF = XROLL && A < C;
+  constexpr bool XLINE = XROLL && A >= C;
+  constexpr bool PAD = is_padded(ARM);
+  constexpr bool LB = PAD || XLINE;  // a shared line buffer
+  constexpr int NCH = ARM == kRolladd2 ? 2 : 1;  // arrays rolled through shuffles
+  constexpr int D = ARM == kVshift6 ? 6 : 1;     // deepest padded offset
+  constexpr int NV = (C + D + 3) / 4;            // 16-byte windows a padded load
   const int n = SUB ? kG : w;
-  const int T = n / kE;
-  const int li = threadIdx.x / T;
-  const int t = threadIdx.x - li * T;
-  const int line = blockIdx.x * (blockDim.x / T) + li;
-  const int bs = n + 128;
+  const int TL = n / C;
+  const Place<C> P(threadIdx.x, TL);
+  const bool multi = P.nw > 1;
+  const int seg = TL > 16 ? 32 : 16;
+  const int lpb = multi ? 1 : 32 / seg;
+  const int li = multi ? 0 : P.lane / seg;
+  const bool act = P.t < TL;
+  const int line = blockIdx.x * lpb + li;
+  const int c0 = P.t * C;
+  const int bs = PAD ? n + kPad : n;
   extern __shared__ __align__(16) int32_t lsm[];
-  int32_t* bx = lsm + li * 4 * bs;  // x: [2][bs]
-  int32_t* bu = bx + 2 * bs;        // u: [2][bs]
+  int32_t* lb = lsm + li * 2 * bs;                   // [2][bs]
+  int32_t* eb = lsm + (LB ? lpb * 2 * bs : 0);       // [2][NCH][nw][A]
+  const int from = (c0 - A + n) % n;                 // XLINE: first source column
 
-  int32_t x[kE], y[kE];
+  int32_t x[C], y[C];
 #pragma unroll
-  for (int e = 0; e < kE; ++e) {
-    const int j = t + e * T;
-    x[e] = src[SUB ? (long long)j * w + line : (long long)line * w + j];
-    y[e] = x[e] ^ 0x55AA55;
-  }
-  if (is_padded(ARM)) {
-    for (int q = t; q < 128; q += T) {
-      const int32_t v = src[(long long)line * w + q];
-      bx[n + q] = bx[bs + n + q] = bu[n + q] = bu[bs + n + q] = v;
+  for (int e = 0; e < C; ++e) x[e] = 0;
+  if (act) {
+    if (SUB) {
+#pragma unroll
+      for (int e = 0; e < C; ++e) x[e] = src[(c0 + e) * w + line];
+    } else {
+      ld_vec<C>(src + (long long)line * w + c0, x);
     }
   }
-  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < C; ++e) y[e] = x[e] ^ 0x55AA55;
+  if (PAD && P.t < kPad) {
+    const int32_t v = src[(long long)line * w + P.t];
+    lb[n + P.t] = lb[bs + n + P.t] = v;
+  }
+  if (LB) __syncthreads();
 
   int p = 0;
   for (int s = 0; s < steps; ++s) {
-    int32_t yy[kE], u[kE], v[kE];
+    int32_t yy[C], u[C], v[C];
 #pragma unroll
-    for (int e = 0; e < kE; ++e) {
+    for (int e = 0; e < C; ++e) {
       yy[e] = y[e];
       u[e] = x[e] ^ 0x33CC33;
       v[e] = y[e] ^ 0x0F0F0F;
     }
     for (int it = 0; it < k; ++it) {
-      int32_t* cx = bx + p * bs;
-      int32_t* cu = bu + p * bs;
-      if (exchanges(ARM)) {
+      int32_t r[C], wv[4 * NV];
+      RollWindow<C, (XSHUF ? SH : 0)> wx;
+      RollWindow<C, (ARM == kRolladd2 ? 1 : 0)> wu;
+      if constexpr (exchanges(ARM)) {
+        int32_t* ebp = eb + p * NCH * P.nw * A;
+        if constexpr (XSHUF) wx.pre(P, x, ebp);
+        if constexpr (ARM == kRolladd2) wu.pre(P, u, ebp + P.nw * A);
+        if constexpr (LB) st_vec<C>(lb + p * bs + c0, ARM == kRollvshift ? u : x);
+        if (multi || LB) __syncthreads();
+        if constexpr (XSHUF) wx.post(P, ebp);
+        if constexpr (ARM == kRolladd2) wu.post(P, ebp + P.nw * A);
+        if constexpr (XLINE) ld_vec<C>(lb + p * bs + from, r);
+        if constexpr (PAD) {
 #pragma unroll
-        for (int e = 0; e < kE; ++e) {
-          cx[t + e * T] = x[e];
-          if (two_chains(ARM)) cu[t + e * T] = u[e];
+          for (int q = 0; q < NV; ++q) ld_vec<4>(lb + p * bs + c0 + 4 * q, wv + 4 * q);
         }
-        __syncthreads();
         p ^= 1;
       }
+      if constexpr (XSHUF) {
 #pragma unroll
-      for (int e = 0; e < kE; ++e) {
-        const int j = t + e * T;
+        for (int e = 0; e < C; ++e) r[e] = wx.at(x, e - SH);
+      }
+#pragma unroll
+      for (int e = 0; e < C; ++e) {
         const int32_t xo = x[e], yo = yy[e];
-        int32_t r = 0;
-        if (exchanges(ARM) && !is_padded(ARM)) r = cx[wrapi(j - SH, n)];
-        if (ARM == kRollvshift) r = cx[wrapi(j - 1, n)];
         if (ARM == kAdd || ARM == kTadd) {
           x[e] = wadd(xo, yo);
         } else if (ARM == kRoll || ARM == kJroll || ARM == kRoll3 ||
                    ARM == kRollSub || ARM == kTrollSub || ARM == kTroll3 ||
                    ARM == kConcatRot) {
-          x[e] = r;
+          x[e] = r[e];
         } else if (ARM == kRolladd || ARM == kTrolladd || ARM == kTrolladd8 ||
                    ARM == kRolladd2 || ARM == kRollvshift) {
-          x[e] = wadd(r, yo);
+          x[e] = wadd(r[e], yo);
         } else if (ARM == kVshift1) {
-          x[e] = wadd(cx[j + 1], yo);
+          x[e] = wadd(wv[e + 1], yo);
         } else if (ARM == kVshift6) {
           int32_t acc = yo;
 #pragma unroll
-          for (int d = 1; d <= 6; ++d) acc = wadd(acc, cx[j + d]);
+          for (int d = 1; d <= 6; ++d) acc = wadd(acc, wv[e + d]);
           x[e] = acc;
         } else if (ARM == kMix || ARM == kTmix) {
-          x[e] = xo > yo ? (wadd(xo, r) >> 1) : wadd(r & kMask, yo);
+          x[e] = xo > yo ? (wadd(xo, r[e]) >> 1) : wadd(r[e] & kMask, yo);
         } else if (ARM == kWhere) {
           x[e] = xo > yo ? yo : xo;
         } else if (ARM == kShiftAnd) {
@@ -231,33 +448,49 @@ line_kernel(const int32_t* __restrict__ src, int32_t* __restrict__ out, int w,
           x[e] = wmul(xo, xo);
         }
         if (ARM != kMul) yy[e] = xo;
+      }
+#pragma unroll
+      for (int e = 0; e < C; ++e) {
         opaque(x[e]);
         opaque(yy[e]);
-        if (two_chains(ARM)) {
-          const int32_t uo = u[e];
-          const int32_t ru = ARM == kRolladd2 ? cu[wrapi(j - 1, n)] : cu[j + 1];
-          u[e] = wadd(ru, v[e]);
-          v[e] = uo;
+      }
+      if constexpr (two_chains(ARM)) {
+        int32_t nu[C];
+#pragma unroll
+        for (int e = 0; e < C; ++e)
+          nu[e] = wadd(ARM == kRolladd2 ? wu.at(u, e - 1) : wv[e + 1], v[e]);
+#pragma unroll
+        for (int e = 0; e < C; ++e) {
+          v[e] = u[e];
+          u[e] = nu[e];
           opaque(u[e]);
           opaque(v[e]);
         }
       }
     }
+    int32_t* o = out + (long long)s * (kG * 128);
 #pragma unroll
-    for (int e = 0; e < kE; ++e) {
-      const int j = t + e * T;
+    for (int e = 0; e < C; ++e) {
       int32_t r = wadd(x[e], yy[e]);
       if (two_chains(ARM)) r = wadd(wadd(r, u[e]), v[e]);
       x[e] = r;
+    }
+    if (act) {
       if (SUB) {
-        if (line < 128) out[((long long)s * kG + j) * 128 + line] = r;
-      } else if (is_transposed(ARM)) {
-        if (j < kG) {
-          out[((long long)s * kG + j) * 128 + line] = r;
-          if (line < 128 - kG) out[((long long)s * kG + j) * 128 + kG + line] = 0;
+        if (line < 128) {
+#pragma unroll
+          for (int e = 0; e < C; ++e) o[(c0 + e) * 128 + line] = x[e];
         }
-      } else if (j < 128) {
-        out[((long long)s * kG + line) * 128 + j] = r;
+      } else if (is_transposed(ARM)) {
+        if (c0 < kG) {  // C divides G: a thread's columns are all below G or none
+#pragma unroll
+          for (int e = 0; e < C; ++e) {
+            o[(c0 + e) * 128 + line] = x[e];
+            if (line < 128 - kG) o[(c0 + e) * 128 + kG + line] = 0;
+          }
+        }
+      } else if (c0 < 128) {
+        st_vec<C>(o + line * 128 + c0, x);
       }
     }
   }
@@ -460,105 +693,112 @@ mm_kernel(const int32_t* __restrict__ src, const void* __restrict__ mv,
 }
 
 // Kernel-step mocks.  A block owns input row i: its 5 box slabs a[5], the
-// tap row b and b2, 8 elements of each a thread (max(w/8, 32) threads).
-// Per iteration: the box's sub3 rotate tree and writeback on the 5 slabs
-// (three exchanges), and the tap engine of row i: stepv 6 shifts of b read
-// from shared memory; stepm / stepmbf the row's 128-column slabs as a
-// [16, 128] matrix X (rows beyond w/128 zero) times m [128, 1536] on the
-// tensor cores: in-slab blocks 0..5 from X, spill blocks 6..8 from X with
-// rows rotated up one slab, 9..11 down one; tap ti = (block ti + spill
-// block ti) & 0xFF.  m is given transposed ([1536][128]) in global memory.
-template <int ARM>
-__global__ void __launch_bounds__(256)
+// tap row b and b2, C contiguous columns of each a thread (max(w/C, 32)
+// threads).  Per iteration: the box's sub3 rotate tree and writeback on the
+// 5 slabs (rolls by 1, 2 and 3: three exchanges), and the tap engine of row
+// i: stepv 6 shifts of b (its 3 columns each side ride the first
+// exchange); stepm / stepmbf the row's 128-column slabs as a [16, 128]
+// matrix X (rows beyond w/128 zero) times m [128, 1536] on the tensor
+// cores: in-slab blocks 0..5 from X, spill blocks 6..8 from X with rows
+// rotated up one slab, 9..11 down one; tap ti = (block ti + spill block ti)
+// & 0xFF.  m is given transposed ([1536][128]) in global memory.  X and the
+// tap sums pass through shared memory, so the stepm arms keep the three
+// barriers an iteration at every width.
+template <int ARM, int C>
+__global__ void __launch_bounds__(kIsoW / C)
 step_kernel(const int32_t* __restrict__ src, const void* __restrict__ mv,
             int32_t* __restrict__ out, int w, int k, int steps) {
   constexpr bool MM = ARM == kStepm || ARM == kStepmbf;
+  constexpr bool TAPS = ARM == kStepv;
+  constexpr int kEW = kStepEW;
   extern __shared__ __align__(16) unsigned char ssm[];
-  int32_t* ab = reinterpret_cast<int32_t*>(ssm);  // [2][5][w]
-  int32_t* bb = ab + 10 * w;                        // [w]
-  int32_t* ts = bb + w;                             // [w] tap sums
-  unsigned char* xa = reinterpret_cast<unsigned char*>(ts + w);  // [16][128] s8 or bf16
+  unsigned char* xa = ssm;  // MM: [16][128] s8 or bf16
+  int32_t* ts = reinterpret_cast<int32_t*>(ssm + (MM ? 16 * 128 * 2 : 0));  // MM: [w]
+  int32_t* eb = ts + (MM ? w : 0);  // [2][kEW][nw] warp edges
 
   const int i = blockIdx.x;
   const int tid = threadIdx.x;
-  const int T = w / kE;
-  const bool own = tid < T;
+  const Place<C> P(tid, w / C);
+  const bool multi = P.nw > 1;
+  const bool own = tid < w / C;
+  const int c0 = tid * C;
   const int ns = w / 128;
   const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, tig = lane & 3;
-  const int nw = blockDim.x >> 5;
+  const int nwb = blockDim.x >> 5;
 
-  int32_t a[5][kE], b[kE], b2[kE];
+  int32_t a[5][C], b[C], b2[C];
+  {
+    int32_t v[C];
 #pragma unroll
-  for (int e = 0; e < kE; ++e) {
-    const int32_t v = own ? src[(long long)i * w + tid + e * T] : 0;
-    const int32_t sd = v & 0xFF;
-    a[0][e] = sd;
-    a[1][e] = sd ^ 0x55;
-    a[2][e] = (sd >> 1) & 0xFF;
-    a[3][e] = sd ^ 0xA3;
-    a[4][e] = (sd + 17) & 0xFF;
-    b[e] = sd;
-    b2[e] = (v >> 3) & 0xFF;
+    for (int e = 0; e < C; ++e) v[e] = 0;
+    if (own) ld_vec<C>(src + (long long)i * w + c0, v);
+#pragma unroll
+    for (int e = 0; e < C; ++e) {
+      const int32_t sd = v[e] & 0xFF;
+      a[0][e] = sd;
+      a[1][e] = sd ^ 0x55;
+      a[2][e] = (sd >> 1) & 0xFF;
+      a[3][e] = sd ^ 0xA3;
+      a[4][e] = (sd + 17) & 0xFF;
+      b[e] = sd;
+      b2[e] = (v[e] >> 3) & 0xFF;
+    }
   }
-  for (int q = tid; q < 16 * 128 * 2 / 4; q += blockDim.x)
-    reinterpret_cast<uint32_t*>(xa)[q] = 0;
+  if (MM)
+    for (int q = tid; q < 16 * 128 * 2 / 4; q += blockDim.x)
+      reinterpret_cast<uint32_t*>(xa)[q] = 0;
   __syncthreads();
 
   int p = 0;
-  auto put = [&](const int32_t v[5][kE]) {
-    if (own) {
-#pragma unroll
-      for (int q = 0; q < 5; ++q)
-#pragma unroll
-        for (int e = 0; e < kE; ++e) ab[(p * 5 + q) * w + tid + e * T] = v[q][e];
-    }
-  };
-  auto get = [&](int q, int e, int sh) {
-    return ab[(p * 5 + q) * w + wrapi(tid + e * T - sh, w)];
-  };
-
   for (int s = 0; s < steps; ++s) {
     for (int it = 0; it < k; ++it) {
-      int32_t h[5][kE];
-      // exchange 1: a, and b for the tap engine
-      put(a);
-      if (own) {
+      int32_t h[5][C];
+      {  // exchange 1: a rolled by 1; stepv: b's 3 columns each side; stepm: b into X
+        int32_t* ebp = eb + p * kEW * P.nw;
+        RollWindow<C, 1> wa[5];
+        Window<C, (TAPS ? 3 : 0), (TAPS ? 3 : 0)> wb;
 #pragma unroll
-        for (int e = 0; e < kE; ++e) {
-          const int j = tid + e * T;
-          if (ARM == kStepv) bb[j] = b[e];
-          if (ARM == kStepm) xa[(j >> 7) * 128 + (j & 127)] = static_cast<unsigned char>(b[e] & 0xFF);
-          if (ARM == kStepmbf)
-            reinterpret_cast<__nv_bfloat16*>(xa)[(j >> 7) * 128 + (j & 127)] =
-                __float2bfloat16_rn(static_cast<float>(b[e]));
+        for (int q = 0; q < 5; ++q) wa[q].pre(P, a[q], ebp + q * P.nw);
+        wb.pre(P, b, ebp + 5 * P.nw);
+        if (MM && own) {
+#pragma unroll
+          for (int e = 0; e < C; ++e) {
+            const int j = c0 + e;  // X row j >> 7, column j & 127
+            if (ARM == kStepm) xa[j] = static_cast<unsigned char>(b[e] & 0xFF);
+            else reinterpret_cast<__nv_bfloat16*>(xa)[j] = __float2bfloat16_rn(static_cast<float>(b[e]));
+          }
         }
-      }
-      __syncthreads();
-      if (own) {
+        if (multi || MM) __syncthreads();
+#pragma unroll
+        for (int q = 0; q < 5; ++q) wa[q].post(P, ebp + q * P.nw);
+        wb.post(P, ebp + 5 * P.nw);
+        p ^= 1;
 #pragma unroll
         for (int q = 0; q < 5; ++q)
 #pragma unroll
-          for (int e = 0; e < kE; ++e) h[q][e] = wadd(a[q][e], get(q, e, 1));
-        if (ARM == kStepv) {
+          for (int e = 0; e < C; ++e) h[q][e] = wadd(a[q][e], wa[q].at(a[q], e - 1));
+        if constexpr (TAPS) {
+          int32_t nb[C];
 #pragma unroll
-          for (int e = 0; e < kE; ++e) {
-            const int j = tid + e * T;
+          for (int e = 0; e < C; ++e) {
             int32_t acc = b2[e];
-            acc = wadd(acc, bb[wrapi(j - 1, w)]);
-            acc = wadd(acc, bb[wrapi(j - 2, w)]);
-            acc = wadd(acc, bb[wrapi(j - 3, w)]);
-            acc = wadd(acc, bb[wrapi(j + 1, w)]);
-            acc = wadd(acc, bb[wrapi(j + 2, w)]);
-            acc = wadd(acc, bb[wrapi(j + 3, w)]);
+#pragma unroll
+            for (int d = 1; d <= 3; ++d) acc = wadd(acc, wb.at(b, e - d));
+#pragma unroll
+            for (int d = 1; d <= 3; ++d) acc = wadd(acc, wb.at(b, e + d));
+            nb[e] = acc & 0xFF;
+          }
+#pragma unroll
+          for (int e = 0; e < C; ++e) {
             b2[e] = b[e];
-            b[e] = acc & 0xFF;
+            b[e] = nb[e];
           }
         }
       }
       if (MM) {
-        for (int nt = warp; nt < 16; nt += nw) {
-          using C = typename std::conditional<ARM == kStepm, int32_t, float>::type;
-          C cb[6][4] = {}, cs[6][4] = {};
+        for (int nt = warp; nt < 16; nt += nwb) {
+          using Acc = typename std::conditional<ARM == kStepm, int32_t, float>::type;
+          Acc cb[6][4] = {}, cs[6][4] = {};
           const int rx0 = g, rx1 = g + 8;
           const int rr0 = g < ns ? (g + 1) % ns : g, rr1 = g + 8 < ns ? (g + 9) % ns : g + 8;
           const int rl0 = g < ns ? (g - 1 + ns) % ns : g, rl1 = g + 8 < ns ? (g + 7) % ns : g + 8;
@@ -611,43 +851,53 @@ step_kernel(const int32_t* __restrict__ src, const void* __restrict__ mv,
           }
         }
       }
-      p ^= 1;
-      // exchange 2: hb
-      put(h);
-      __syncthreads();
-      if (own) {
+      {  // exchange 2: h rolled by 2
+        int32_t* ebp = eb + p * kEW * P.nw;
+        RollWindow<C, 2> wh[5];
 #pragma unroll
-        for (int q = 0; q < 5; ++q)
+        for (int q = 0; q < 5; ++q) wh[q].pre(P, h[q], ebp + 2 * q * P.nw);
+        if (multi || MM) __syncthreads();
 #pragma unroll
-          for (int e = 0; e < kE; ++e) h[q][e] = wadd(h[q][e], get(q, e, 2));
-        if (MM) {
+        for (int q = 0; q < 5; ++q) wh[q].post(P, ebp + 2 * q * P.nw);
+        p ^= 1;
 #pragma unroll
-          for (int e = 0; e < kE; ++e) {
-            const int32_t acc = wadd(b2[e], ts[tid + e * T]);
+        for (int q = 0; q < 5; ++q) {
+          int32_t t[C];
+#pragma unroll
+          for (int e = 0; e < C; ++e) t[e] = wadd(h[q][e], wh[q].at(h[q], e - 2));
+#pragma unroll
+          for (int e = 0; e < C; ++e) h[q][e] = t[e];
+        }
+        if (MM && own) {
+#pragma unroll
+          for (int e = 0; e < C; ++e) {
+            const int32_t acc = wadd(b2[e], ts[c0 + e]);
             b2[e] = b[e];
             b[e] = acc & 0xFF;
           }
         }
       }
-      p ^= 1;
-      // exchange 3: hc
-      put(h);
-      __syncthreads();
-      if (own) {
+      {  // exchange 3: h rolled by 3, then the writeback
+        int32_t* ebp = eb + p * kEW * P.nw;
+        RollWindow<C, 3> wh[5];
+#pragma unroll
+        for (int q = 0; q < 5; ++q) wh[q].pre(P, h[q], ebp + 3 * q * P.nw);
+        if (multi || MM) __syncthreads();
+#pragma unroll
+        for (int q = 0; q < 5; ++q) wh[q].post(P, ebp + 3 * q * P.nw);
+        p ^= 1;
 #pragma unroll
         for (int q = 0; q < 5; ++q)
 #pragma unroll
-          for (int e = 0; e < kE; ++e)
-            a[q][e] = (wsub(wadd(h[q][e], get(q, e, 3)), a[q][e]) >> 4) & kMask;
+          for (int e = 0; e < C; ++e)
+            a[q][e] = (wsub(wadd(h[q][e], wh[q].at(h[q], e - 3)), a[q][e]) >> 4) & kMask;
       }
-      p ^= 1;
     }
-    if (own) {
+    if (own && c0 < 128) {
+      int32_t v[C];
 #pragma unroll
-      for (int e = 0; e < kE; ++e) {
-        const int j = tid + e * T;
-        if (j < 128) out[((long long)s * kG + i) * 128 + j] = wadd(b[e], a[0][e]);
-      }
+      for (int e = 0; e < C; ++e) v[e] = wadd(b[e], a[0][e]);
+      st_vec<C>(out + (long long)s * (kG * 128) + i * 128 + c0, v);
     }
   }
 }
@@ -660,218 +910,360 @@ enum IsoArm {
   kSmallshift
 };
 
-// A block owns input row i: Q slabs of a and a2 (the 3-D arms' [q, i]
-// rows, bigslab's rows q*G + i), b and b2; 256 threads x 8 elements cover
-// W = 2048.  Every shift goes through shared memory (a: two buffers of Q
-// lines, b: two of one line).
-template <int Q>
-__global__ void __launch_bounds__(256)
-isolate_kernel(const int32_t* __restrict__ src, int32_t* __restrict__ out,
-               int arm, int iota, int amount, int k, int steps) {
+constexpr int kIsoEW = 24;  // K9 edge words a warp an exchange: 15 for 5 slabs, 6 for b
+
+// r = v rolled by SH (r[c] = v[c - SH]) for Q slabs, one exchange; b's
+// window wb (BL columns left, BR right) rides the same barrier.
+template <int Q, int C, int SH, int BL, int BR>
+__device__ __forceinline__ void roll_slabs(const Place<C>& P, const int32_t (&v)[Q][C],
+                                           int32_t (&r)[Q][C], int32_t* ebp,
+                                           Window<C, BL, BR>& wb, const int32_t b[C]) {
+  constexpr int A = SH < 0 ? -SH : SH;
+  RollWindow<C, SH> wr[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) wr[q].pre(P, v[q], ebp + q * A * P.nw);
+  wb.pre(P, b, ebp + 15 * P.nw);
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < Q; ++q) wr[q].post(P, ebp + q * A * P.nw);
+  wb.post(P, ebp + 15 * P.nw);
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+#pragma unroll
+    for (int e = 0; e < C; ++e) r[q][e] = wr[q].at(v[q], e - SH);
+}
+template <int Q, int C, int SH>
+__device__ __forceinline__ void roll_slabs(const Place<C>& P, const int32_t (&v)[Q][C],
+                                           int32_t (&r)[Q][C], int32_t* ebp) {
+  Window<C, 0, 0> none;
+  roll_slabs<Q, C, SH, 0, 0>(P, v, r, ebp, none, v[0]);
+}
+
+// A block owns input row i: Q slabs of a and a2 (the 3-D arms' [q, i] rows,
+// bigslab's rows q*G + i), b and b2; W/C threads of C contiguous columns
+// cover W = 2048, so the line spans several warps.  Rolls by 1-3 (the
+// arms' own shifts, bigshift's W-1..W-3 as left shifts, and ramtN where N
+// mod W is within 3 of 0: SH, a template parameter) go through shuffles and
+// warp edges, one barrier an exchange; other ramtN amounts (SH = 0) through
+// a whole-line shared buffer.  The arm is a template parameter, so the
+// chain loop holds only its own code.
+template <int ARM, int C, int SH>
+__global__ void __launch_bounds__(kIsoW / C)
+isolate_kernel(const int32_t* __restrict__ src, int32_t* __restrict__ out, int iota,
+               int amount, int k, int steps) {
   constexpr int W = kIsoW;
   constexpr int S = 1920;  // hboxfull's clamp column
+  constexpr int Q = ARM == kBigshift || ARM == kSmallshift ? 1 : 5;
+  constexpr bool SLAB = ARM == kBigslab || ARM == kSlab3d || ARM == kSlab3d1 ||
+                        ARM == kUnroll || ARM == kFori;
+  constexpr bool BIG = ARM == kBigshift || ARM == kUnroll || ARM == kFori;
+  constexpr int BL = BIG ? 3 : ARM == kSmallshift ? 6 : 0;  // b's shifts to the left
+  constexpr int BR = BIG ? 3 : 0;                            // and to the right
+  constexpr int kEdgeWarp = (S - 1) / C / 32;  // hboxfull: the warp of column S-1
   extern __shared__ __align__(16) int32_t ism[];
-  int32_t* ab = ism;              // [2][Q][W]
-  int32_t* bb = ism + 2 * Q * W;  // [2][W]
   const int i = blockIdx.x;
-  const int t = threadIdx.x;
+  const Place<C> P(threadIdx.x, W / C);
+  const int c0 = threadIdx.x * C;
+  int32_t* eb = ism;                          // [2][kIsoEW][nw] warp edges
+  int32_t* ab = ism + 2 * kIsoEW * P.nw;      // ramt, SH = 0: [2][Q][W]
 
-  int32_t a[Q][kE], a2[Q][kE], b[kE], b2[kE];
+  int32_t a[Q][C], a2[Q][C], b[C], b2[C];
+  {
+    int32_t sd[C];
+    ld_vec<C>(src + (long long)i * W + c0, sd);
 #pragma unroll
-  for (int e = 0; e < kE; ++e) {
-    const int j = t + e * 256;
-    const int32_t sd = src[(long long)i * W + j] & 0xFF;
-    b[e] = sd;
-    b2[e] = sd ^ 0x55AA55;
+    for (int e = 0; e < C; ++e) {
+      sd[e] &= 0xFF;
+      b[e] = sd[e];
+      b2[e] = sd[e] ^ 0x55AA55;
 #pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      if (!iota) {
-        a[q][e] = sd;
-        a2[q][e] = sd ^ 0x55;
-      } else if (Q == 5 && arm != kBigslab) {  // [5, G, W]: axis 1 is G
-        a[q][e] = i % 251;
-        a2[q][e] = q % 241;
-      } else {  // [5G, W] or [G, W]: axis 1 is W
-        a[q][e] = j % 251;
-        a2[q][e] = (q * kG + i) % 241;
+      for (int q = 0; q < Q; ++q) {
+        if (!iota) {
+          a[q][e] = sd[e];
+          a2[q][e] = sd[e] ^ 0x55;
+        } else if (Q == 5 && ARM != kBigslab) {  // [5, G, W]: axis 1 is G
+          a[q][e] = i % 251;
+          a2[q][e] = q % 241;
+        } else {  // [5G, W] or [G, W]: axis 1 is W
+          a[q][e] = (c0 + e) % 251;
+          a2[q][e] = (q * kG + i) % 241;
+        }
       }
     }
   }
-  __syncthreads();
+  int widx[C];  // ramt, SH = 0: the source column of each element
+#pragma unroll
+  for (int e = 0; e < C; ++e) widx[e] = (c0 + e - amount + W) % W;
 
-  int pa = 0, pb = 0;
-  // r = v rolled by sh (r[j] = v[j - sh]) through shared memory.
-  auto roll_a = [&](const int32_t v[Q][kE], int32_t r[Q][kE], int sh) {
+  int p = 0;
+  auto edges = [&]() {  // this exchange's half of the edge buffer
+    int32_t* e = eb + p * kIsoEW * P.nw;
+    p ^= 1;
+    return e;
+  };
+  auto chain = [&](const int32_t (&r)[Q][C]) {  // a, a2 = r + a2, a
 #pragma unroll
     for (int q = 0; q < Q; ++q)
 #pragma unroll
-      for (int e = 0; e < kE; ++e) ab[(pa * Q + q) * W + t + e * 256] = v[q][e];
-    __syncthreads();
+      for (int e = 0; e < C; ++e) {
+        const int32_t ao = a[q][e];
+        a[q][e] = wadd(r[q][e], a2[q][e]);
+        a2[q][e] = ao;
+      }
+  };
+  auto add = [](int32_t (&h)[Q][C], const int32_t (&u)[Q][C], const int32_t (&r)[Q][C]) {
 #pragma unroll
     for (int q = 0; q < Q; ++q)
 #pragma unroll
-      for (int e = 0; e < kE; ++e) r[q][e] = ab[(pa * Q + q) * W + wrapi(t + e * 256 - sh, W)];
-    pa ^= 1;
+      for (int e = 0; e < C; ++e) h[q][e] = wadd(u[q][e], r[q][e]);
   };
 
   for (int s = 0; s < steps; ++s) {
     for (int it = 0; it < k; ++it) {
-      int32_t r[Q][kE], h[Q][kE];
-      switch (arm) {
-        case kRoll2chz:
-        case kRoll2ch:
-          roll_a(a, r, 1);
-          for (int q = 0; q < Q; ++q) for (int e = 0; e < kE; ++e) h[q][e] = wadd(a[q][e], r[q][e]);
-          roll_a(h, r, 2);
-          for (int q = 0; q < Q; ++q) for (int e = 0; e < kE; ++e) a[q][e] = wadd(h[q][e], r[q][e]);
-          break;
-        case kRamt:
-          roll_a(a, r, amount);
-          for (int q = 0; q < Q; ++q)
-            for (int e = 0; e < kE; ++e) {
-              const int32_t ao = a[q][e];
-              a[q][e] = wadd(r[q][e], a2[q][e]);
-              a2[q][e] = ao;
-            }
-          break;
-        case kHboxtree:
-        case kHboxsub:
-        case kHboxwb:
-        case kHboxprod:
-        case kHboxk: {
-          const bool fwd = arm == kHboxk;  // rolls 1, 2 (else -1, -2)
-          roll_a(a, r, fwd ? 1 : -1);
-          for (int q = 0; q < Q; ++q) for (int e = 0; e < kE; ++e) h[q][e] = wadd(a[q][e], r[q][e]);
-          roll_a(h, r, fwd ? 2 : -2);
-          for (int q = 0; q < Q; ++q) for (int e = 0; e < kE; ++e) h[q][e] = wadd(h[q][e], r[q][e]);
-          roll_a(h, r, 3);
-          for (int q = 0; q < Q; ++q)
-            for (int e = 0; e < kE; ++e) {
-              int32_t v = wadd(h[q][e], r[q][e]);
-              if (arm == kHboxsub || arm == kHboxprod || arm == kHboxk) v = wsub(v, a[q][e]);
-              if (arm == kHboxwb || arm == kHboxprod || arm == kHboxk) v = (v >> 4) & kMask;
-              a[q][e] = v;
-            }
-          break;
-        }
-        case kHboxfull: {
-          // the TPU kernel's _hbox7: b = a + rot(a, 1); c = b + rot(b, 2);
-          // bulk = c + rot(c, -3) - a; columns < 3 and S-3..S-1 taken from
-          // the box clamped at [0, S-1] (its 128-column edge slabs)
-          int32_t edge[Q][kE];
+      int32_t r[Q][C], h[Q][C];
+      Window<C, BL, BR> wb;
+      if constexpr (ARM == kRoll2chz || ARM == kRoll2ch) {
+        roll_slabs<Q, C, 1>(P, a, r, edges());
+        add(h, a, r);
+        roll_slabs<Q, C, 2>(P, h, r, edges());
+        add(a, h, r);
+      } else if constexpr (ARM == kRamt) {
+        if constexpr (SH != 0) {
+          roll_slabs<Q, C, SH>(P, a, r, edges());
+        } else {
+          int32_t* l = ab + p * Q * W;
+          p ^= 1;
 #pragma unroll
-          for (int q = 0; q < Q; ++q)
-#pragma unroll
-            for (int e = 0; e < kE; ++e) ab[(pa * Q + q) * W + t + e * 256] = a[q][e];
+          for (int q = 0; q < Q; ++q) st_vec<C>(l + q * W + c0, a[q]);
           __syncthreads();
-          for (int q = 0; q < Q; ++q)
-            for (int e = 0; e < kE; ++e) {
-              const int j = t + e * 256;
-              const int32_t* line = ab + (pa * Q + q) * W;
-              h[q][e] = wadd(a[q][e], line[wrapi(j + 1, W)]);
-              int32_t sum = 0;
-              if (j < 3 || (j >= S - 3 && j < S))
-                for (int d = -3; d <= 3; ++d) sum = wadd(sum, line[min(max(j + d, 0), S - 1)]);
-              edge[q][e] = sum;
-            }
-          pa ^= 1;
-          roll_a(h, r, -2);
-          for (int q = 0; q < Q; ++q) for (int e = 0; e < kE; ++e) h[q][e] = wadd(h[q][e], r[q][e]);
-          roll_a(h, r, 3);
-          for (int q = 0; q < Q; ++q)
-            for (int e = 0; e < kE; ++e) {
-              const int j = t + e * 256;
-              int32_t v = wsub(wadd(h[q][e], r[q][e]), a[q][e]);
-              if (j < 3 || (j >= S - 3 && j < S)) v = edge[q][e];
-              a[q][e] = (v >> 4) & kMask;
-            }
-          break;
-        }
-        default:
-          break;
-      }
-      if (arm == kBigslab || arm == kSlab3d || arm == kSlab3d1 || arm == kUnroll ||
-          arm == kFori) {
-        for (int d = 1; d <= (arm == kSlab3d1 ? 1 : 3); ++d) {
-          roll_a(a, r, d);
-          for (int q = 0; q < Q; ++q)
-            for (int e = 0; e < kE; ++e) {
-              const int32_t ao = a[q][e];
-              a[q][e] = wadd(r[q][e], a2[q][e]);
-              a2[q][e] = ao;
-            }
-        }
-      }
-      if (arm == kBigshift || arm == kUnroll || arm == kFori || arm == kSmallshift) {
 #pragma unroll
-        for (int e = 0; e < kE; ++e) bb[pb * W + t + e * 256] = b[e];
-        __syncthreads();
-        const int32_t* line = bb + pb * W;
+          for (int q = 0; q < Q; ++q)
 #pragma unroll
-        for (int e = 0; e < kE; ++e) {
-          const int j = t + e * 256;
-          int32_t acc = b2[e];
-          if (arm == kSmallshift) {
-            for (int d = 1; d <= 6; ++d) acc = wadd(acc, line[wrapi(j - d, W)]);
-          } else {
-            for (int d = 1; d <= 3; ++d) acc = wadd(acc, line[wrapi(j - d, W)]);
-            for (int d = 1; d <= 3; ++d) acc = wadd(acc, line[wrapi(j + d, W)]);
+            for (int e = 0; e < C; ++e) r[q][e] = l[q * W + widx[e]];
+        }
+        chain(r);
+      } else if constexpr (ARM == kHboxtree || ARM == kHboxsub || ARM == kHboxwb ||
+                           ARM == kHboxprod || ARM == kHboxk) {
+        constexpr int F = ARM == kHboxk ? 1 : -1;  // rolls 1, 2 (else -1, -2), then 3
+        roll_slabs<Q, C, F>(P, a, r, edges());
+        add(h, a, r);
+        roll_slabs<Q, C, 2 * F>(P, h, r, edges());
+        add(h, h, r);
+        roll_slabs<Q, C, 3>(P, h, r, edges());
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+#pragma unroll
+          for (int e = 0; e < C; ++e) {
+            int32_t v = wadd(h[q][e], r[q][e]);
+            if (ARM == kHboxsub || ARM == kHboxprod || ARM == kHboxk) v = wsub(v, a[q][e]);
+            if (ARM == kHboxwb || ARM == kHboxprod || ARM == kHboxk) v = (v >> 4) & kMask;
+            a[q][e] = v;
           }
-          b2[e] = b[e];
-          b[e] = acc;
+      } else if constexpr (ARM == kHboxfull) {
+        // the TPU kernel's _hbox7: b = a + rot(a, 1); c = b + rot(b, 2);
+        // bulk = c + rot(c, -3) - a; columns < 3 and S-3..S-1 take the box
+        // of a clamped at [0, S-1] (its 128-column edge slabs), which only
+        // the warps of columns 0 and S-1 compute, from a's 3 columns each
+        // side (within the warp)
+        roll_slabs<Q, C, -1>(P, a, r, edges());
+        add(h, a, r);
+        roll_slabs<Q, C, -2>(P, h, r, edges());
+        add(h, h, r);
+        roll_slabs<Q, C, 3>(P, h, r, edges());
+        const bool ew = P.warp == 0 || P.warp == kEdgeWarp;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          int32_t v[C];
+#pragma unroll
+          for (int e = 0; e < C; ++e) v[e] = wsub(wadd(h[q][e], r[q][e]), a[q][e]);
+          if (ew) {
+            Window<C, 3, 3> wa;
+            shfl_left<C, 3>(P, a[q], wa.l);
+            shfl_right<C, 3>(P, a[q], wa.r);
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+              if (c0 == 0) wa.l[d] = a[q][0];
+              if (c0 + C == S) wa.r[d] = a[q][C - 1];
+            }
+#pragma unroll
+            for (int e = 0; e < C; ++e) {
+              const int j = c0 + e;
+              if (j < 3 || (j >= S - 3 && j < S)) {
+                int32_t sum = 0;
+#pragma unroll
+                for (int d = -3; d <= 3; ++d) sum = wadd(sum, wa.at(a[q], e + d));
+                v[e] = sum;
+              }
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < C; ++e) a[q][e] = (v[e] >> 4) & kMask;
         }
-        pb ^= 1;
+      }
+      if constexpr (SLAB) {  // shifts 1 (b's window rides it), 2, 3
+        roll_slabs<Q, C, 1, BL, BR>(P, a, r, edges(), wb, b);
+        chain(r);
+        if constexpr (ARM != kSlab3d1) {
+          roll_slabs<Q, C, 2>(P, a, r, edges());
+          chain(r);
+          roll_slabs<Q, C, 3>(P, a, r, edges());
+          chain(r);
+        }
+      } else if constexpr (BL + BR > 0) {  // bigshift, smallshift: b alone
+        int32_t* ebp = edges();
+        wb.pre(P, b, ebp);
+        __syncthreads();
+        wb.post(P, ebp);
+      }
+      if constexpr (BL + BR > 0) {
+        int32_t nb[C];
+#pragma unroll
+        for (int e = 0; e < C; ++e) {
+          int32_t acc = b2[e];
+          if (ARM == kSmallshift) {
+#pragma unroll
+            for (int d = 1; d <= 6; ++d) acc = wadd(acc, wb.at(b, e - d));
+          } else {
+#pragma unroll
+            for (int d = 1; d <= 3; ++d) acc = wadd(acc, wb.at(b, e - d));
+#pragma unroll
+            for (int d = 1; d <= 3; ++d) acc = wadd(acc, wb.at(b, e + d));
+          }
+          nb[e] = acc;
+        }
+#pragma unroll
+        for (int e = 0; e < C; ++e) {
+          b2[e] = b[e];
+          b[e] = nb[e];
+        }
       }
     }
+    if (c0 < 128) {
+      int32_t v[C];
 #pragma unroll
-    for (int e = 0; e < kE; ++e) {
-      const int j = t + e * 256;
-      if (j < 128) out[((long long)s * kG + i) * 128 + j] = wadd(b[e], a[0][e]);
+      for (int e = 0; e < C; ++e) v[e] = wadd(b[e], a[0][e]);
+      st_vec<C>(out + (long long)s * (kG * 128) + i * 128 + c0, v);
     }
   }
 }
 
-template <typename K>
-cudaError_t launch(K kern, int grid, int threads, int smem, cudaStream_t st,
-                   const int32_t* src, const void* m, int32_t* out, int w, int k,
-                   int steps) {
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  kern<<<grid, threads, smem, st>>>(src, m, out, w, k, steps);
-  return cudaGetLastError();
+// ---- the launchers ---------------------------------------------------------
+
+// The grid a kernel's layout needs.  Each launcher holds the caller's plan
+// (tools/probe_kernel.line_plan / isolate_plan) to it: C, threads and blocks
+// exactly, shared bytes at least, so a plan that drifts from the layout
+// fails to launch instead of running a wrong grid.
+struct Grid {
+  int cols, threads, blocks, smem;
+};
+
+// line_kernel<ARM, kLineC> on [kG, w]: lines of up to 32 threads share
+// one-warp blocks (two a warp at 16 threads or fewer), a longer line (whole
+// warps) takes a block; shared memory holds the line buffers and the warp
+// edges of a multi-warp line.
+template <int ARM>
+Grid line_grid(int w) {
+  constexpr int C = kLineC;
+  constexpr int SH = roll_shift(ARM);
+  constexpr int A = SH < 0 ? -SH : SH;
+  constexpr bool VSH = ARM == kVshift1 || ARM == kVshift6;
+  constexpr bool XROLL = exchanges(ARM) && !VSH;
+  constexpr bool LB = is_padded(ARM) || (XROLL && A >= C);
+  constexpr int NCH = ARM == kRolladd2 ? 2 : 1;
+  const int n = ARM == kRollSub ? kG : w;
+  const int TL = n / C;
+  const bool multi = TL > 32;
+  if (n % C || (multi && TL % 32)) return {};
+  const int lpb = multi || TL > 16 ? 1 : 2;
+  const int bs = is_padded(ARM) ? n + kPad : n;
+  const int words = (LB ? lpb * 2 * bs : 0) + (XROLL && A < C && multi ? 2 * NCH * (TL / 32) * A : 0);
+  return {C, multi ? TL : 32, (ARM == kRollSub ? w : kG) / lpb, 4 * words};
 }
 
+// mm_kernel<ARM>: 16-row tiles of 8 warps; its fixed layout counts as C = kE.
 template <int ARM>
-cudaError_t launch_line(cudaStream_t st, const int32_t* src, int32_t* out, int w, int k,
-                        int steps) {
-  const bool sub = ARM == kRollSub;
-  const int n = sub ? kG : w;
-  const int lpb = sub ? 8 : 1;
-  const int threads = n / kE * lpb;
-  const int smem = lpb * 4 * (n + 128) * 4;
-  auto kern = line_kernel<ARM>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  kern<<<(sub ? w : kG) / lpb, threads, smem, st>>>(src, out, w, k, steps);
-  return cudaGetLastError();
-}
-
-template <int ARM>
-cudaError_t launch_mm(cudaStream_t st, const int32_t* src, const void* m, int32_t* out,
-                      int w, int k, int steps) {
+Grid mm_grid(int w) {
   const int tiles = (kG * w / 128 + 15) / 16;
-  const int grid = ARM == kMmroll && tiles < kG ? kG : tiles;
   int smem = 2 * 16 * 128 * (ARM == kMmint8 ? 1 : 4);
   if (ARM == kMmf32) smem += 128 * 128 * 4;
   if (ARM == kMmroll) smem += 2 * w * 4;
-  return launch(mm_kernel<ARM>, grid, 256, smem, st, src, m, out, w, k, steps);
+  return {kE, 256, ARM == kMmroll && tiles < kG ? kG : tiles, smem};
 }
 
+// step_kernel's C: 8, or 4 where w / 8 threads would be several warps but
+// not whole ones (w = 384, 640, ...).
+int step_cols(int w) { return w / 8 > 32 && (w / 8) % 32 ? 4 : 8; }
+
+// step_kernel<ARM, step_cols(w)>: a block an input row; shared memory holds
+// the stepm arms' X and tap sums and a multi-warp line's warp edges.
 template <int ARM>
-cudaError_t launch_step(cudaStream_t st, const int32_t* src, const void* m, int32_t* out,
-                        int w, int k, int steps) {
-  const int smem = (10 * w + 2 * w) * 4 + 16 * 128 * 2;
-  return launch(step_kernel<ARM>, kG, w / kE < 32 ? 32 : w / kE, smem, st, src, m, out, w, k, steps);
+Grid step_grid(int w) {
+  const int C = step_cols(w), TL = w / C;
+  const bool MM = ARM == kStepm || ARM == kStepmbf;
+  const int words = (MM ? w : 0) + (TL > 32 ? 2 * kStepEW * (TL / 32) : 0);
+  return {C, TL > 32 ? TL : 32, kG, (MM ? 16 * 128 * 2 : 0) + 4 * words};
+}
+
+// ramtN's shuffle shift (isolate_kernel's SH): N mod W as a signed shift
+// where it is 1-3 columns, else 0 (the whole-line route).
+int ramt_shift(int amount) {
+  const int s = amount <= kIsoW / 2 ? amount : amount - kIsoW;
+  return s >= -3 && s <= 3 ? s : 0;
+}
+
+// isolate_kernel<ARM, kIsoC, SH>: a block an input row of W / C threads;
+// shared memory holds the warp edges and, for ramt's whole-line route, the
+// Q = 5 slabs twice.
+template <int ARM, int SH>
+Grid isolate_grid() {
+  constexpr int TL = kIsoW / kIsoC;
+  constexpr int words = 2 * kIsoEW * (TL / 32) + (ARM == kRamt && SH == 0 ? 2 * 5 * kIsoW : 0);
+  return {kIsoC, TL, kG, 4 * words};
+}
+
+// Check the plan against the grid the kernel needs, set the kernel's
+// dynamic shared memory and launch it on the plan's grid.
+template <typename... KA, typename... Args>
+cudaError_t go(Grid need, void (*kern)(KA...), int cols, int blocks, int threads, int smem,
+               cudaStream_t st, Args... args) {
+  if (cols != need.cols || threads != need.threads || blocks != need.blocks ||
+      smem < need.smem)
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<blocks, threads, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_isolate(int arm, int cols, int shift, int blocks, int threads, int smem,
+                           cudaStream_t st, const int32_t* src, int32_t* out, int iota,
+                           int amount, int k, int steps) {
+  if (amount < 0 || amount >= kIsoW || shift != (arm == kRamt ? ramt_shift(amount) : 0))
+    return cudaErrorInvalidValue;
+#define SNO_GO(A, SH) go(isolate_grid<A, SH>(), isolate_kernel<A, kIsoC, SH>, cols, blocks, \
+                         threads, smem, st, src, out, iota, amount, k, steps)
+  switch (arm) {
+    case kRamt:
+      switch (shift) {
+        case 0: return SNO_GO(kRamt, 0);
+        case 1: return SNO_GO(kRamt, 1);
+        case 2: return SNO_GO(kRamt, 2);
+        case 3: return SNO_GO(kRamt, 3);
+        case -1: return SNO_GO(kRamt, -1);
+        case -2: return SNO_GO(kRamt, -2);
+        case -3: return SNO_GO(kRamt, -3);
+        default: return cudaErrorInvalidValue;
+      }
+#define SNO_ISO(A) case A: return SNO_GO(A, 0);
+    SNO_ISO(kRoll2chz) SNO_ISO(kHboxtree) SNO_ISO(kHboxsub) SNO_ISO(kHboxwb)
+    SNO_ISO(kHboxfull) SNO_ISO(kRoll2ch) SNO_ISO(kHboxprod) SNO_ISO(kHboxk)
+    SNO_ISO(kBigslab) SNO_ISO(kSlab3d) SNO_ISO(kSlab3d1) SNO_ISO(kUnroll)
+    SNO_ISO(kFori) SNO_ISO(kBigshift) SNO_ISO(kSmallshift)
+#undef SNO_ISO
+#undef SNO_GO
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -893,19 +1285,27 @@ int sno_probe_dynrow_launch(int u8, const void* kept, void* out, int H, int S, i
 }
 
 // K8: one arm (the Arm code) on src [120, w] int32 -> out [steps, 120, 128]
-// int32 (zeroed by the caller for mmroll).  m: the permutation matrix for
-// the mm and step arms (mmf32: f32 [128][128]; mmbf16 / mmroll / mmint8:
-// bf16 / s8 transposed [128 n][128 k]; stepm / stepmbf: s8 / bf16
-// transposed [1536 n][128 k]), else null.  w: a multiple of 128 <= 2048.
-int sno_probe_calibrate_launch(int arm, const void* src_, const void* m, void* out_, int w,
-                               int k, int steps, void* stream) {
+// int32 (zeroed by the caller for mmroll), on the launch plan's grid
+// (tools/probe_kernel.line_plan: C = cols, blocks, threads, shared bytes),
+// which must be the one the arm's kernel needs (line_grid, mm_grid,
+// step_grid).  m: the permutation matrix for the mm and step arms (mmf32:
+// f32 [128][128]; mmbf16 / mmroll / mmint8: bf16 / s8 transposed [128 n][128
+// k]; stepm / stepmbf: s8 / bf16 transposed [1536 n][128 k]), else null.
+// w: a multiple of 128 <= 2048.
+int sno_probe_calibrate_launch(int arm, int cols, const void* src_, const void* m, void* out_,
+                               int w, int k, int steps, int blocks, int threads, int smem,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int32_t* src = static_cast<const int32_t*>(src_);
   int32_t* out = static_cast<int32_t*>(out_);
   if (w % 128 || w < 128 || w > 2048) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   switch (arm) {
-#define SNO_LINE(A) case A: e = launch_line<A>(st, src, out, w, k, steps); break;
+#define SNO_LINE(A)                                                                       \
+  case A:                                                                                 \
+    e = go(line_grid<A>(w), line_kernel<A, kLineC>, cols, blocks, threads, smem, st, src, \
+           out, w, k, steps);                                                             \
+    break;
     SNO_LINE(kAdd) SNO_LINE(kRoll) SNO_LINE(kRoll3) SNO_LINE(kRollSub)
     SNO_LINE(kConcatRot) SNO_LINE(kJroll) SNO_LINE(kWhere) SNO_LINE(kShiftAnd)
     SNO_LINE(kMin) SNO_LINE(kMul) SNO_LINE(kMix) SNO_LINE(kTrollSub)
@@ -913,10 +1313,21 @@ int sno_probe_calibrate_launch(int arm, const void* src_, const void* m, void* o
     SNO_LINE(kTrolladd) SNO_LINE(kTrolladd8) SNO_LINE(kVshift1)
     SNO_LINE(kVshift6) SNO_LINE(kRolladd2) SNO_LINE(kRollvshift)
 #undef SNO_LINE
-#define SNO_MM(A) case A: e = launch_mm<A>(st, src, m, out, w, k, steps); break;
+#define SNO_MM(A)                                                                         \
+  case A:                                                                                 \
+    e = go(mm_grid<A>(w), mm_kernel<A>, cols, blocks, threads, smem, st, src, m, out, w, \
+           k, steps);                                                                     \
+    break;
     SNO_MM(kMmbf16) SNO_MM(kMmf32) SNO_MM(kMmint8) SNO_MM(kMmroll)
 #undef SNO_MM
-#define SNO_STEP(A) case A: e = launch_step<A>(st, src, m, out, w, k, steps); break;
+#define SNO_STEP(A)                                                                         \
+  case A:                                                                                   \
+    e = step_cols(w) == 4                                                                   \
+            ? go(step_grid<A>(w), step_kernel<A, 4>, cols, blocks, threads, smem, st, src, \
+                 m, out, w, k, steps)                                                       \
+            : go(step_grid<A>(w), step_kernel<A, 8>, cols, blocks, threads, smem, st, src, \
+                 m, out, w, k, steps);                                                      \
+    break;
     SNO_STEP(kStepv) SNO_STEP(kStepm) SNO_STEP(kStepmbf) SNO_STEP(kSteph)
 #undef SNO_STEP
     default:
@@ -926,29 +1337,16 @@ int sno_probe_calibrate_launch(int arm, const void* src_, const void* m, void* o
 }
 
 // K9: one arm (the IsoArm code; iota 1 for the _iota seeds; amount the
-// ramt shift, 0..2047) on src [120, 2048] int32 -> out [steps, 120, 128].
-int sno_probe_isolate_launch(int arm, int iota, int amount, const void* src, void* out,
-                             int k, int steps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool slab = !(arm == kBigshift || arm == kSmallshift);
-  const int Q = slab ? 5 : 1;
-  const int smem = (2 * Q * kIsoW + 2 * kIsoW) * 4;
-  cudaError_t e;
-  if (slab) {
-    e = cudaFuncSetAttribute(isolate_kernel<5>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e == cudaSuccess)
-      isolate_kernel<5><<<kG, 256, smem, st>>>(static_cast<const int32_t*>(src),
-                                               static_cast<int32_t*>(out), arm, iota,
-                                               amount, k, steps);
-  } else {
-    e = cudaFuncSetAttribute(isolate_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e == cudaSuccess)
-      isolate_kernel<1><<<kG, 256, smem, st>>>(static_cast<const int32_t*>(src),
-                                               static_cast<int32_t*>(out), arm, iota,
-                                               amount, k, steps);
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+// ramt shift, 0..2047, and shift its shuffle route's -3..3, 0 for the
+// whole-line route: ramt_shift(amount)) on src [120, 2048] int32 -> out
+// [steps, 120, 128], on the grid of tools/probe_kernel.isolate_plan, which
+// must be isolate_grid's.
+int sno_probe_isolate_launch(int arm, int cols, int iota, int amount, int shift,
+                             const void* src, void* out, int k, int steps, int blocks,
+                             int threads, int smem, void* stream) {
+  return static_cast<int>(launch_isolate(
+      arm, cols, shift, blocks, threads, smem, static_cast<cudaStream_t>(stream),
+      static_cast<const int32_t*>(src), static_cast<int32_t*>(out), iota, amount, k, steps));
 }
 
 }  // extern "C"

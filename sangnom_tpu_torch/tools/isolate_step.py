@@ -23,8 +23,9 @@ otherwise) and ``b, b2`` ([G, W]); every step stores all four back.
 A ``_iota`` suffix seeds ``a`` and ``a2`` from iotas instead of the input.
 ``run`` launches ``csrc/probes.cu::isolate_kernel`` on a CUDA tensor
 (``probe_kernel.LAUNCHES["isolate"]``; one block a row of the input, all
-slabs of that row, 8 elements of each line a thread, shifts through shared
-memory) and ``run_plain`` on a CPU tensor.
+slabs of that row, 8 contiguous columns of each line a thread, shifts by 1-3
+columns through warp shuffles and warp edges, ``probe_kernel.isolate_plan``)
+and ``run_plain`` on a CPU tensor.
 """
 
 from __future__ import annotations

@@ -6,11 +6,18 @@
 built with the rest of the library (``ops.deint_kernel.build``).  Each
 function checks its tensors, launches or raises, and adds one to its
 ``LAUNCHES`` count.
+
+``line_plan`` and ``isolate_plan`` give the grid a K8 or K9 launch runs on
+(the launcher passes their numbers to the kernel library, which refuses a
+grid its kernel's layout does not need): C columns a thread, threads and
+blocks, the route of the rolls, the exchanges and block barriers a chain
+iteration, and the shared bytes.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -32,7 +39,138 @@ ISOLATE_CODES = {name: i for i, name in enumerate((
     "bigshift", "smallshift"))}
 
 _G = 120
+_W = 2048
 _bound = False
+
+# The C, contiguous columns a thread, each kernel is built for: the winner of
+# a sweep of C over 4 and 8 on the card (PERF.md section 6).  line_kernel 4:
+# twice the warps on a line hide the exchange's barrier for mix, the cost
+# model's blend; step_kernel and isolate_kernel 8: half the shuffles a column
+# for their five slabs.
+LINE_COLS = 4     # csrc/probes.cu kLineC
+ISOLATE_COLS = 8  # kIsoC
+
+# K8 line arms by how they exchange: no exchange, the padded scratch's
+# static-offset loads, two chains; the roll's shift where it is not 1.
+_NO_EXCHANGE = ("add", "tadd", "where", "shift_and", "min", "mul")
+_VSHIFT = ("vshift1", "vshift6")
+_TWO_CHAINS = ("rolladd2", "rollvshift")
+_SHIFT = {"roll3": 3, "troll3": 3, "trolladd8": 8, "concat_rot": -1}
+_MM = ("mmbf16", "mmf32", "mmint8", "mmroll")
+_STEP = ("stepv", "stepm", "stepmbf", "steph")
+# csrc/probes.cu's layout constants (kStepEW, kIsoEW, kPad); its launchers
+# refuse a plan that disagrees with them.
+_STEP_EDGE_WORDS = 16  # step_kernel: edge words a warp an exchange
+_ISO_EDGE_WORDS = 24   # isolate_kernel: the same
+_PAD = 16              # padded scratch columns past the line
+
+
+class Plan(NamedTuple):
+    """One K8 or K9 launch (``csrc/probes.cu``), as the launcher runs it.
+
+    ``cols``: C, the contiguous columns a thread owns (mm arms: 8, their
+    fixed layout).  ``route``: how a chain iteration moves values between
+    threads: "none" (no exchange), "shuffle" (registers and warp shuffles;
+    a line of several warps also trades each warp's edge values through
+    shared memory behind one barrier), "line" (the whole line through a
+    shared buffer, for shifts of C columns or more), "pad" (a shared store
+    and a static-offset load, what vshift1/vshift6 measure), "shuffle+pad"
+    (rollvshift: x through shuffles, u through the padded scratch) or
+    "matrix" (mm_kernel's tensor-core product).  ``exchanges``: rolls of a
+    line (or a tap round) a chain iteration; ``barriers``: block barriers
+    a chain iteration; ``smem_bytes``: dynamic shared memory.  ``shift``:
+    K9 ramtN's shift on the shuffle route (-3..3), the launcher's template
+    choice; 0 elsewhere."""
+
+    cols: int
+    threads: int
+    blocks: int
+    route: str
+    exchanges: int
+    barriers: int
+    smem_bytes: int
+    shift: int = 0
+
+
+def step_cols(w: int) -> int:
+    """step_kernel's C on a line of w: 8, or 4 where w / 8 threads would be
+    several warps but not whole ones (w = 384, 640, ...)."""
+    return 4 if w // 8 > 32 and (w // 8) % 32 else 8
+
+
+def line_plan(kind: str, w: int) -> Plan:
+    """K8's launch for arm ``kind`` on [G, w].  A line (a row of the slab,
+    n = w; roll_sub's a column, n = G) of n / C threads up to 32 shares a
+    one-warp block (two lines of 16 lanes or fewer a warp); a longer line,
+    a whole number of warps, takes a block.  C is ``LINE_COLS``, or
+    ``step_cols(w)`` for the step arms."""
+    if kind not in CALIBRATE_CODES:
+        raise ValueError(f"calibration kernel: unknown arm {kind!r}")
+    if kind in _MM:
+        tiles = (_G * w // 128 + 15) // 16
+        blocks = _G if kind == "mmroll" and tiles < _G else tiles
+        smem = 2 * 16 * 128 * (1 if kind == "mmint8" else 4)
+        smem += 128 * 128 * 4 if kind == "mmf32" else 2 * w * 4 if kind == "mmroll" else 0
+        return Plan(8, 256, blocks, "matrix", 1, 1, smem)
+    n = _G if kind == "roll_sub" else w
+    cols = step_cols(w) if kind in _STEP else LINE_COLS
+    lanes = n // cols
+    multi = lanes > 32
+    nw = lanes // 32 if multi else 1
+    if kind in _STEP:
+        mm = kind in ("stepm", "stepmbf")
+        smem = (16 * 128 * 2 + 4 * w if mm else 0) + (
+            2 * _STEP_EDGE_WORDS * nw * 4 if multi else 0)
+        return Plan(cols, max(lanes, 32), _G, "shuffle", 3 if kind == "steph" else 4,
+                    3 if multi or mm else 0, smem)
+    per_block = 1 if multi else (2 if lanes <= 16 else 1)
+    lines = w if kind == "roll_sub" else _G
+    grid = (cols, lanes if multi else 32, lines // per_block)
+    buf = per_block * 2 * (n + _PAD) * 4  # a padded line's two buffers
+    if kind in _NO_EXCHANGE:
+        return Plan(*grid, "none", 0, 0, 0)
+    if kind in _VSHIFT:
+        return Plan(*grid, "pad", 1, 1, buf)
+    shift = _SHIFT.get(kind, 1)
+    if abs(shift) >= cols:
+        return Plan(*grid, "line", 1, 1, per_block * 2 * n * 4)
+    chains = 2 if kind == "rolladd2" else 1
+    edges = 2 * chains * nw * abs(shift) * 4 if multi else 0
+    if kind == "rollvshift":
+        return Plan(*grid, "shuffle+pad", 2, 1, buf + edges)
+    return Plan(*grid, "shuffle", 2 if kind in _TWO_CHAINS else 1, int(multi), edges)
+
+
+def _ramt_shift(amount: int) -> int:
+    """ramtN's shift as the nearest signed one: N mod W in (-W/2, W/2]."""
+    return amount if amount <= _W // 2 else amount - _W
+
+
+def isolate_plan(kind: str) -> Plan:
+    """K9's launch for arm ``kind`` (``_iota`` and ``ramtN`` included): one
+    block a row of the input, W / C threads (C = ``ISOLATE_COLS``), so a
+    line spans several warps.  ramtN goes through shuffles where its shift
+    (N mod W, signed) is 1-3 columns, else through the whole line in shared
+    memory; unroll and fori trade b's window in their first slab exchange."""
+    cols = ISOLATE_COLS
+    base = kind.removesuffix("_iota")
+    amount = None
+    if base.startswith("ramt") and base[4:].isdigit():
+        base, amount = "ramt", int(base[4:]) % _W
+    if base not in ISOLATE_CODES or (base == "ramt") != (amount is not None):
+        raise ValueError(f"step-isolation kernel: unknown arm {kind!r}")
+    lanes = _W // cols
+    edges = 2 * _ISO_EDGE_WORDS * (lanes // 32) * 4
+    grid = (cols, lanes, _G)
+    if base == "ramt":
+        shift = _ramt_shift(amount)
+        if 0 < abs(shift) <= 3:
+            return Plan(*grid, "shuffle", 1, 1, edges, shift=shift)
+        return Plan(*grid, "line", 1, 1, edges + 2 * 5 * _W * 4)
+    rolls = {"roll2chz": 2, "roll2ch": 2, "bigshift": 1, "smallshift": 1,
+             "slab3d1": 1}.get(base, 3)
+    taps = int(base in ("unroll", "fori"))  # b's round, on the first slab barrier
+    return Plan(*grid, "shuffle", rolls + taps, rolls, edges)
 
 
 def reset_launches() -> None:
@@ -46,8 +184,8 @@ def _lib() -> ctypes.CDLL:
     if not _bound:
         i, p = ctypes.c_int, ctypes.c_void_p
         lib.sno_probe_dynrow_launch.argtypes = [i, p, p, i, i, i, p]
-        lib.sno_probe_calibrate_launch.argtypes = [i, p, p, p, i, i, i, p]
-        lib.sno_probe_isolate_launch.argtypes = [i, i, i, p, p, i, i, p]
+        lib.sno_probe_calibrate_launch.argtypes = [i, i, p, p, p, i, i, i, i, i, i, p]
+        lib.sno_probe_isolate_launch.argtypes = [i, i, i, i, i, p, p, i, i, i, i, i, p]
         for f in (lib.sno_probe_dynrow_launch, lib.sno_probe_calibrate_launch,
                   lib.sno_probe_isolate_launch):
             f.restype = ctypes.c_int
@@ -89,9 +227,9 @@ def dynrow(kept: torch.Tensor, steps: int) -> torch.Tensor:
 def calibrate(src: torch.Tensor, kind: str, k: int, steps: int,
               m: torch.Tensor | None = None) -> torch.Tensor:
     """K8: one arm on [G, w] int32 -> [steps, G, 128] int32 (the transposed
-    arms write columns 120..127 as zeros).  ``m``: the permutation matrix of
-    the mm and step-m arms, in the layout ``csrc/probes.cu`` documents
-    (``calibrate_vpu.kernel_matrix``)."""
+    arms write columns 120..127 as zeros), on ``line_plan(kind, w)``.
+    ``m``: the permutation matrix of the mm and step-m arms, in the layout
+    ``csrc/probes.cu`` documents (``calibrate_vpu.kernel_matrix``)."""
     name = "calibration kernel"
     _check(name, src)
     G, w = src.shape
@@ -105,37 +243,42 @@ def calibrate(src: torch.Tensor, kind: str, k: int, steps: int,
         raise ValueError(f"{name}: arm {kind!r} {'needs' if needs_m else 'takes no'} matrix")
     if m is not None:
         _check(name, m)
+    plan = line_plan(kind, w)
     alloc = torch.zeros if kind == "mmroll" else torch.empty  # mmroll adds into out
     out = alloc((steps, G, 128), dtype=torch.int32, device=src.device)
     lib = _lib()
     with torch.cuda.device(src.device):
         err = lib.sno_probe_calibrate_launch(
-            CALIBRATE_CODES[kind], src.data_ptr(), None if m is None else m.data_ptr(),
-            out.data_ptr(), w, k, steps, _stream(src))
+            CALIBRATE_CODES[kind], plan.cols, src.data_ptr(),
+            None if m is None else m.data_ptr(), out.data_ptr(), w, k, steps, plan.blocks,
+            plan.threads, plan.smem_bytes, _stream(src))
     dk._check(lib, err, f"{name} launch")
     LAUNCHES["calibrate"] += 1
     return out
 
 
 def isolate(src: torch.Tensor, kind: str, k: int, steps: int) -> torch.Tensor:
-    """K9: one arm on [G, 2048] int32 -> [steps, G, 128] int32."""
+    """K9: one arm on [G, 2048] int32 -> [steps, G, 128] int32, on
+    ``isolate_plan(kind)``."""
     name = "step-isolation kernel"
     _check(name, src)
     if tuple(src.shape) != (_G, 2048) or src.dtype != torch.int32:
         raise ValueError(f"{name}: input {tuple(src.shape)} {src.dtype}, expected "
                          f"[{_G}, 2048] int32")
+    if k < 1:
+        raise ValueError(f"{name}: arm {kind!r} with k={k}")
+    plan = isolate_plan(kind)
     base = kind.removesuffix("_iota")
     amount = 0
     if base.startswith("ramt"):
-        base, amount = "ramt", int(base[4:]) % 2048
-    if base not in ISOLATE_CODES or k < 1:
-        raise ValueError(f"{name}: arm {kind!r} with k={k}")
+        base, amount = "ramt", int(base[4:]) % _W
     out = torch.empty((steps, _G, 128), dtype=torch.int32, device=src.device)
     lib = _lib()
     with torch.cuda.device(src.device):
-        err = lib.sno_probe_isolate_launch(ISOLATE_CODES[base], int(kind.endswith("_iota")),
-                                           amount, src.data_ptr(), out.data_ptr(), k,
-                                           steps, _stream(src))
+        err = lib.sno_probe_isolate_launch(
+            ISOLATE_CODES[base], plan.cols, int(kind.endswith("_iota")), amount, plan.shift,
+            src.data_ptr(), out.data_ptr(), k, steps, plan.blocks, plan.threads,
+            plan.smem_bytes, _stream(src))
     dk._check(lib, err, f"{name} launch")
     LAUNCHES["isolate"] += 1
     return out

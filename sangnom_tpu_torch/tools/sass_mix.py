@@ -10,6 +10,9 @@ instructions to the integer ALU pipe.  It needs nvcc and cuobjdump, not a
 card::
 
     python -m sangnom_tpu_torch.tools.sass_mix add mul min where shift_and mix
+
+A rolling arm's loop shows its shuffles (``SHFL``) and, on a line of
+several warps, one ``BAR`` with the edge values' few ``STS``/``LDS``.
 """
 
 from __future__ import annotations
@@ -58,8 +61,9 @@ def innermost_loops(body: list[tuple[int, str, str]]) -> list[list[str]]:
 
 
 def arm_loops(sass: str, arm: str) -> list[list[str]]:
-    """Innermost loops of line_kernel<arm>."""
-    tag = re.compile(rf"line_kernelILi{CALIBRATE_CODES[arm]}EE")
+    """Innermost loops of line_kernel<arm> (or <arm, C>, where the kernel
+    takes its columns a thread as a second template argument)."""
+    tag = re.compile(rf"line_kernelILi{CALIBRATE_CODES[arm]}E(?:Li\d+E)?E")
     for name, body in functions(sass).items():
         if tag.search(name):
             return innermost_loops(body)

@@ -40,6 +40,8 @@ from sangnom_tpu_torch.ops.primitives import KernelSpec
 # can still do two counted operations in one issue.
 PEAK_BYTES_S = 3.35e12
 PEAK_INT32_S = 128 * 132 * 1.98e9
+# Dense bf16 tensor-core FLOP/s (H100 SXM data sheet), for the mm arms.
+PEAK_BF16_S = 989e12
 # The counterpart of the TPU package's VPU_PEAK_OPS, for ``utilization``.
 INT32_PEAK_OPS = {"h100": PEAK_INT32_S}
 # int32 operations the algorithm needs, per column (reference
@@ -50,9 +52,10 @@ INT32_PEAK_OPS = {"h100": PEAK_INT32_S}
 OPS_PREPARE, OPS_SMOOTH, OPS_FINALIZE = 42, 90, 31
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """(least ms the card could take, what binds it) for int32 work."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_INT32_S * 1e3
+def bound(nbytes: float, ops: float, peak: float = PEAK_INT32_S) -> tuple[float, str]:
+    """(least ms the card could take, what binds it) for ``ops`` operations
+    at ``peak`` a second (int32 by default) and ``nbytes`` of traffic."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -114,23 +117,26 @@ def kernel_ops_per_frame(fmt: VideoFormat, width: int, height: int,
 # Element-ops/s per op class, in calibrate_vpu.OPS_PER_ITER units, measured
 # by chip_smoke.py phase 13 (tools.calibrate_vpu.calibrate): the differential
 # rate (K=32 -> 96, 4 -> 12 for the step arms) of each arm on a [120, 2048]
-# int32 slab over 512 steps, best of 3.  `where` is one min instruction for
-# its 2 cost-model ops, so it reads twice `min`; the tensor-core arms count
-# elements shifted, not multiply-adds.
+# int32 slab over 512 steps, best of 3, with the probe kernels' layout
+# (tools.probe_kernel: 4 contiguous columns a thread for the line arms, as
+# csrc/deint.cu, 8 for the step arms; a roll by a few columns through warp
+# shuffles, one barrier a roll on a 2048-column line).
+# `where` is one min instruction for its 2 cost-model ops, so it reads twice
+# `min`; the tensor-core arms count elements shifted, not multiply-adds.
 CALIBRATION_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 MEASURED_OP_RATES = {
-    "add": 18187341944027.742,
-    "mul": 15214209977478.432,
-    "min": 14752226796246.549,
-    "roll": 2167132406641.1716,
-    "shift_and": 22147814641202.83,
-    "where": 29500995669847.234,
-    "mix": 10932359935906.94,
-    "rolladd": 3910104653250.5103,
-    "mmbf16": 128863935289.50174,
-    "mmint8": 269686503209.2251,
-    "stepv": 2400402888884.5864,
-    "stepm": 400682055237.054,
+    "add": 23198585677560.164,
+    "mul": 16190057498401.145,
+    "min": 15160135176549.574,
+    "roll": 3759347556677.5054,
+    "shift_and": 21118175200743.38,
+    "where": 30272855524643.64,
+    "mix": 23006198431842.242,
+    "rolladd": 6516689205446.707,
+    "mmbf16": 132750313516.98303,
+    "mmint8": 274511917861.3227,
+    "stepv": 3080810947847.1733,
+    "stepm": 405954534946.55505,
 }
 
 # Operations of one row step of csrc/deint.cu per column, in the

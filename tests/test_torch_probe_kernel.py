@@ -52,6 +52,23 @@ def test_calibrate_arm_on_card(cuda, kind):
         _equal(got, cv.run_plain(src, kind, k, w=w, steps=4), kind)
 
 
+LINE_AND_STEP = [k for k in cv.OPS_PER_ITER if k not in cv.MM_KINDS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [128, 384, 1024, 2048])
+@pytest.mark.parametrize("kind", LINE_AND_STEP)
+def test_line_and_step_arms_on_card(cuda, kind, w):
+    """Every line_kernel and step_kernel arm at widths of one warp (128) and
+    of several: the one-warp lines wrap through shuffles alone, the longer
+    ones trade warp edges through shared memory; at 384 the step arms run
+    their 4-column build."""
+    src = _src(cuda)
+    k = 2 if kind in cv.STEP_KINDS else 3
+    got = cv.run(src, kind, k, w=w, steps=3)
+    _equal(got, cv.run_plain(src, kind, k, w=w, steps=3), kind)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", cv.DEFAULT_ARMS + ("mmbf16", "mmint8", "stepv", "stepm"))
 def test_calibrate_full_shape_on_card(cuda, kind):
@@ -70,6 +87,52 @@ def test_isolate_arm_on_card(cuda, arm):
     kind, _, k = arm.partition("@")
     src = _src(cuda)
     _equal(iso.run(src, kind, int(k)), iso.run_plain(src, kind, int(k)))
+
+
+ISO_SWEEP = ([f"{k}@1" for k in iso.KINDS if k != "bigslab"]
+             + [f"ramt{n}@2" for n in (1, 3, 7, 8, 9, 255, 1024, 2047)]
+             + [f"{k}_iota@1" for k in ("bigslab", "slab3d", "bigshift", "hboxfull",
+                                         "ramt2047", "ramt9")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ISO_SWEEP)
+def test_isolate_arm_sweep_on_card(cuda, arm):
+    """Every K9 arm; ramtN on the shuffle route (N mod W within 3 of 0: 1,
+    3, 2047) and the whole-line route; the _iota seeds."""
+    kind, _, k = arm.partition("@")
+    src = _src(cuda)
+    got = iso.run(src, kind, int(k), steps=3)
+    _equal(got, iso.run_plain(src, kind, int(k), steps=3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ["cols", "threads", "blocks", "smem_bytes"])
+@pytest.mark.parametrize("kind", ["mix", "vshift6", "roll_sub", "stepv", "mmbf16", "unroll",
+                                  "ramt130", "ramt2047"])
+def test_launcher_refuses_a_plan_off_the_layout(cuda, monkeypatch, kind, field):
+    """The library holds a plan to the grid the kernel's layout needs: a
+    plan with another C, thread or block count, or too few shared bytes,
+    raises instead of launching."""
+    k9 = kind in ("unroll", "ramt130", "ramt2047")
+    name = "isolate_plan" if k9 else "line_plan"
+    right = getattr(pk, name)
+
+    def off(*args):
+        plan = right(*args)
+        value = getattr(plan, field)
+        return plan._replace(**{field: 12 - value if field == "cols" else
+                                value - 4 if field == "smem_bytes" else value + 32})
+
+    monkeypatch.setattr(pk, name, off)
+    src = _src(cuda)
+    before = dict(pk.LAUNCHES)
+    with pytest.raises(RuntimeError):
+        if k9:
+            iso.run(src, kind, 1, steps=1)
+        else:
+            cv.run(src, kind, 1, steps=1)
+    assert pk.LAUNCHES == before
 
 
 @pytest.mark.cuda

@@ -26,6 +26,7 @@ from sangnom_tpu.utils import cost_model as jax_cm  # noqa: E402
 from sangnom_tpu_torch.core.formats import get_format  # noqa: E402
 from sangnom_tpu_torch.tools import calibrate_vpu as cv  # noqa: E402
 from sangnom_tpu_torch.tools import isolate_step as iso  # noqa: E402
+from sangnom_tpu_torch.tools import probe_kernel as pk  # noqa: E402
 from sangnom_tpu_torch.tools import probe_pool_dynrow as dyn  # noqa: E402
 from sangnom_tpu_torch.utils import cost_model as cm  # noqa: E402
 
@@ -133,6 +134,81 @@ def test_hbox7_is_the_clamped_box():
     want = ((want + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
     got = iso.hbox7(torch.from_numpy(a.astype(np.int32)), 1920).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", list(cv.OPS_PER_ITER))
+def test_line_plan_invariants(kind):
+    """At every width a K8 plan fits the card (whole warps, at most 1024
+    threads and 227 KiB of shared memory); a line arm's plan covers each
+    line with n / C threads, and on the shuffle route a line of one warp
+    takes no barrier."""
+    for w in (128, 256, 384, 1024, 2048):
+        plan = pk.line_plan(kind, w)
+        assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+        assert plan.smem_bytes <= 227 * 1024
+        if kind in cv.MM_KINDS:
+            continue
+        n = cv.G if kind == "roll_sub" else w
+        lanes = n // plan.cols
+        assert n % plan.cols == 0 and (lanes <= 32 or lanes % 32 == 0)
+        assert plan.threads == max(lanes, 32)
+        if plan.route == "shuffle" and kind not in cv.STEP_KINDS:
+            assert plan.barriers == int(lanes > 32)
+
+
+def test_line_plan_cases():
+    """The timed cases and one plan of each route: mix on [120, 2048] is one
+    line a block of 16 warps with 4 edge words a warp; trolladd8's shift of
+    8 columns takes the whole line; the step arms take C = 4 where 8 would
+    not give whole warps (w = 384)."""
+    P = pk.Plan
+    assert pk.line_plan("mix", 2048) == P(4, 512, 120, "shuffle", 1, 1, 2 * 16 * 4)
+    assert pk.line_plan("mix", 128) == P(4, 32, 120, "shuffle", 1, 0, 0)
+    assert pk.line_plan("roll_sub", 2048) == P(4, 32, 2048, "shuffle", 1, 0, 0)
+    assert pk.line_plan("trolladd8", 2048) == P(4, 512, 120, "line", 1, 1, 2 * 2048 * 4)
+    assert pk.line_plan("vshift6", 2048) == P(4, 512, 120, "pad", 1, 1, 2 * 2064 * 4)
+    assert pk.line_plan("add", 2048) == P(4, 512, 120, "none", 0, 0, 0)
+    assert pk.line_plan("stepv", 2048) == P(8, 256, 120, "shuffle", 4, 3, 2 * 16 * 8 * 4)
+    assert pk.line_plan("stepv", 384) == P(4, 96, 120, "shuffle", 4, 3, 2 * 16 * 3 * 4)
+    assert pk.line_plan("stepv", 128) == P(8, 32, 120, "shuffle", 4, 0, 0)
+    assert pk.line_plan("mmbf16", 2048) == P(8, 256, 120, "matrix", 1, 1, 2 * 16 * 128 * 4)
+
+
+@pytest.mark.parametrize("arm", list(iso.KINDS) + [
+    f"ramt{n}" for n in (0, 1, 3, 4, 1024, 2045, 2047, 4096 + 2)] + ["ramt2047_iota"])
+def test_isolate_plan(arm):
+    """K9: one block a row of W / C threads (whole warps); ramtN through
+    shuffles where N mod W is within 3 of 0, its signed shift the kernel's
+    template choice, else through the whole line."""
+    plan = pk.isolate_plan(arm)
+    assert (plan.threads, plan.blocks) == (2048 // plan.cols, cv.G)
+    assert plan.threads % 32 == 0 and plan.smem_bytes <= 227 * 1024
+    base = arm.removesuffix("_iota")
+    if base.startswith("ramt"):
+        s = int(base[4:]) % 2048
+        s = s - 2048 if s > 1024 else s
+        want = ("shuffle", s) if 0 < abs(s) <= 3 else ("line", 0)
+        assert (plan.route, plan.shift) == want
+    else:
+        assert (plan.route, plan.shift) == ("shuffle", 0)
+
+
+def test_isolate_plan_cases():
+    P = pk.Plan
+    edges = 2 * 24 * 8 * 4  # double-buffered edge words of 8 warps
+    assert pk.isolate_plan("unroll") == P(8, 256, 120, "shuffle", 4, 3, edges)
+    assert pk.isolate_plan("bigshift") == P(8, 256, 120, "shuffle", 1, 1, edges)
+    assert pk.isolate_plan("ramt2047") == P(8, 256, 120, "shuffle", 1, 1, edges, shift=-1)
+    assert pk.isolate_plan("ramt130") == P(8, 256, 120, "line", 1, 1, edges + 2 * 5 * 2048 * 4)
+
+
+def test_plans_reject_bad_arguments():
+    with pytest.raises(ValueError):
+        pk.line_plan("nope", 2048)
+    with pytest.raises(ValueError):
+        pk.isolate_plan("ramt")
+    with pytest.raises(ValueError):
+        pk.isolate_plan("unrol")
 
 
 class _Recorder:
