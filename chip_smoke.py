@@ -944,8 +944,9 @@ def probe_src():
 
 
 def plan_line(plan) -> str:
-    """A K8 / K9 launch plan (``tools.probe_kernel.Plan``) in one phrase."""
-    return (f"C {plan.cols}, {plan.threads} threads x {plan.blocks} blocks, route "
+    """A K8-K10 launch plan (``tools.probe_kernel.Plan``) in one phrase."""
+    return (f"C {plan.cols}" + (f" x {plan.rows} rows" if plan.rows > 1 else "")
+            + f", {plan.threads} threads x {plan.blocks} blocks, route "
             f"{plan.route}, {plan.exchanges} exchanges and {plan.barriers} barriers an "
             f"iteration, {plan.smem_bytes} shared bytes")
 
@@ -955,16 +956,18 @@ def phase_probe_matrix(details):
     at full [120, 2048], 4 steps, at the differential's long chain; K9's
     default arms (bigslab@1 must raise), every other arm once, ramt130@2 (the
     whole-line route), ramt2047@2 (a shuffle) and bigslab_iota@1; K10 at
-    the probe's shape and at 540 x 1920 over 542 steps, u8 and i32.  Prints
+    the probe's shape, at 540 x 1920 over 542 steps and on rows that are not
+    16-byte aligned (60 x 1000 over 30 steps, 5 x 17 over 9), u8 and i32.  Prints
     each K8 arm's and K9 default arm's launch plan.  Returns
-    {kernel: (cases, max_abs_err)}; any difference raises."""
+    {kernel: (cases, max_abs_err)} ("K8mm": the mm arms); any difference
+    raises."""
     from sangnom_tpu_torch.tools import calibrate_vpu as cv
     from sangnom_tpu_torch.tools import isolate_step as iso
     from sangnom_tpu_torch.tools import probe_kernel as prk
     from sangnom_tpu_torch.tools import probe_pool_dynrow as dyn
 
     src = probe_src()
-    res = {"K8": [0, 0.0], "K9": [0, 0.0], "K10": [0, 0.0]}
+    res = {"K8": [0, 0.0], "K8mm": [0, 0.0], "K9": [0, 0.0], "K10": [0, 0.0]}
 
     def check(key, got, want, what):
         torch.cuda.synchronize()
@@ -981,7 +984,8 @@ def phase_probe_matrix(details):
         got = cv.run(src, kind, k, steps=4)
         if kind in cv.TRANSPOSED and got[:, :, 120:].any():
             raise AssertionError(f"K8 {kind}: columns 120..127 not zero")
-        check("K8", got, cv.run_plain(src, kind, k, steps=4), f"{kind} k={k}")
+        check("K8mm" if kind in cv.MM_KINDS else "K8", got,
+              cv.run_plain(src, kind, k, steps=4), f"{kind} k={k}")
     arms = list(iso.DEFAULT_ARMS) + [f"{k}@1" for k in iso.KINDS if k != "bigslab"]
     for arm in arms + ["ramt130@2", "ramt2047@2", "bigslab_iota@1"]:
         kind, _, k = arm.partition("@")
@@ -997,7 +1001,7 @@ def phase_probe_matrix(details):
             log(f"[12 plan] K9 {arm}: {plan_line(prk.isolate_plan(kind))}")
         check("K9", iso.run(src, kind, int(k)), iso.run_plain(src, kind, int(k)), arm)
     for dtype in (np.uint8, np.int32):
-        for H, S, steps in ((64, 256, 70), (540, 1920, 542)):
+        for H, S, steps in ((64, 256, 70), (540, 1920, 542), (60, 1000, 30), (5, 17, 9)):
             kept = torch.from_numpy(dyn.probe_input(dtype, H, S)).to(DEVICE)
             check("K10", dyn.dynrow(kept, steps), dyn.dynrow_plain(kept, steps),
                   f"{np.dtype(dtype).name} {H}x{S} steps {steps}")
@@ -1068,20 +1072,52 @@ def shuffled(cols: int, *reach: int) -> float:
     return sum(reach) / cols
 
 
+def mm_library_ms(kind: str, r: int, iters: int) -> float:
+    """ms of ``iters`` iterations' products of an mm arm by one PyTorch call
+    each, a yardstick the port never calls: z [r, 128] @ m [128, 128] as
+    torch.addmm in float32 with TF32 off (mmf32, + wv), torch._int_mm
+    (mmint8) or a bf16 torch.mm (mmbf16, mmroll); one call timed over 200
+    back-to-back calls, times ``iters``."""
+    from sangnom_tpu_torch.tools import calibrate_vpu as cv
+
+    z, m = cv.mm_seed(r, DEVICE), cv.mm_perm(DEVICE)
+    if kind == "mmf32":
+        zf, mf, wv = z.float(), m.float(), z.float()
+        fn = lambda: torch.addmm(wv, zf, mf)  # noqa: E731
+    elif kind == "mmint8":
+        z8, m8 = cv.wrap8(z).to(torch.int8), m.to(torch.int8)
+        fn = lambda: torch._int_mm(z8, m8)  # noqa: E731
+    else:
+        zb, mb = z.to(torch.bfloat16), m.to(torch.bfloat16)
+        fn = lambda: torch.mm(zb, mb)  # noqa: E731
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        fn()
+        return min(cuda_ms(fn, 200) for _ in range(2)) * iters
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 def probe_timing(card, details) -> dict:
     """ms of one launch of each probe kernel and of its plain version on the
-    same inputs, with its bound: K8 for one arm of each of its kernels at
-    [120, 2048] over 32 steps, mix (line_kernel, the kernel-shaped blend)
-    and mmbf16 (mm_kernel) at k 96, stepv (step_kernel) at k 12; K9's
-    unroll@12 (8 steps); K10 at 540 x 1920 u8 over 542 steps.  The K8 and
-    K9 cases print their launch plans.  Their operation bounds count what
-    the work needs: the adds, masks and shifts of each chain, and for each
-    roll only the shuffles of the plan's C (``shuffled``)."""
+    same inputs, with its bound: K8 for one arm of each of its line and step
+    kernels at [120, 2048] over 32 steps, mix (line_kernel, the
+    kernel-shaped blend) at k 96, stepv (step_kernel) at k 12, and the four
+    mm arms at k 96 with one PyTorch call of each iteration's product as a
+    yardstick (``mm_library_ms``); K9's unroll@12 (8 steps); K10 at 540 x
+    1920 u8 over 542 steps, its kernel's device time by the profiler
+    (``probe_ab.device_ms``).  Each case prints its launch plan.
+    Their operation bounds count what the work needs: the adds, masks and
+    shifts of each chain, and for each roll only the shuffles of the plan's
+    C (``shuffled``); the mm arms' FLOPs of a dense 128 x 128 product an
+    iteration over the rate of the unit they run on."""
     from sangnom_tpu_torch.tools import calibrate_vpu as cv
     from sangnom_tpu_torch.tools import isolate_step as iso
     from sangnom_tpu_torch.tools import probe_kernel as prk
     from sangnom_tpu_torch.tools import probe_pool_dynrow as dyn
-    from sangnom_tpu_torch.utils.cost_model import PEAK_BF16_S
+    from sangnom_tpu_torch.tools.probe_ab import device_ms
+    from sangnom_tpu_torch.utils.cost_model import PEAK_BF16_S, PEAK_FP32_S, PEAK_INT8_S
 
     src = probe_src()
     G, W = src.shape
@@ -1105,22 +1141,29 @@ def probe_timing(card, details) -> dict:
                      lambda: cv.run_plain(src, "stepv", 12, steps=32),
                      (io, 12 * 32 * G * W * (5 * 6 + 7 + shuffled(c_stepv, *slab_and_taps))),
                      "stepv arm, [120, 2048] i32, k 12, 32 steps", prk.line_plan("stepv", W)),
-        # mmbf16: z [G*W/128, 128] @ m [128, 128] an iteration on the tensor cores
-        "K8 mmbf16": (lambda: cv.run(src, "mmbf16", 96, steps=32),
-                      lambda: cv.run_plain(src, "mmbf16", 96, steps=32),
-                      (io, 96 * 32 * 2 * (G * W // 128) * 128 * 128, PEAK_BF16_S),
-                      "mmbf16 arm, [120, 2048] i32, k 96, 32 steps, bf16 tensor-core "
-                      "FLOPs over 989 TFLOP/s", prk.line_plan("mmbf16", W)),
-        # unroll: an add after each of 3 rolls on 5 slabs and 6 shifted adds on
-        # b an iteration
-        "K9": (lambda: iso.run(src, "unroll", 12), lambda: iso.run_plain(src, "unroll", 12),
-               (G * W * 4 + out_bytes(8),
-                12 * 8 * G * W * (5 * 3 + 6 + shuffled(c_k9, *slab_and_taps))),
-               "unroll@12, [120, 2048] i32, 8 steps", prk.isolate_plan("unroll")),
-        "K10": (lambda: dyn.dynrow(kept, 542), lambda: dyn.dynrow_plain(kept, 542),
-                (540 * 1920 + 542 * 1920 * 4, 542 * 1920 * 5),
-                "540 x 1920 u8, 542 steps", None),
     }
+    # the mm arms: z [G*W/128, 128] @ m [128, 128] an iteration, 2 operations
+    # a multiply-add, over the peak of the unit the arm runs on
+    mm_iters = 96 * 32
+    mm_ops = mm_iters * 2 * (G * W // 128) * 128 * 128
+    for kind, peak, unit in (("mmbf16", PEAK_BF16_S, "bf16 tensor-core FLOPs over 989 TFLOP/s"),
+                             ("mmf32", PEAK_FP32_S, "FP32 FMA FLOPs over 66.9 TFLOP/s"),
+                             ("mmint8", PEAK_INT8_S, "int8 tensor-core ops over 1979 TOP/s"),
+                             ("mmroll", PEAK_BF16_S, "bf16 tensor-core FLOPs over 989 TFLOP/s")):
+        cases[f"K8 {kind}"] = (lambda kind=kind: cv.run(src, kind, 96, steps=32),
+                               lambda kind=kind: cv.run_plain(src, kind, 96, steps=32),
+                               (io, mm_ops, peak),
+                               f"{kind} arm, [120, 2048] i32, k 96, 32 steps, {unit}",
+                               prk.line_plan(kind, W))
+    # unroll: an add after each of 3 rolls on 5 slabs and 6 shifted adds on
+    # b an iteration
+    cases["K9"] = (lambda: iso.run(src, "unroll", 12), lambda: iso.run_plain(src, "unroll", 12),
+                   (G * W * 4 + out_bytes(8),
+                    12 * 8 * G * W * (5 * 3 + 6 + shuffled(c_k9, *slab_and_taps))),
+                   "unroll@12, [120, 2048] i32, 8 steps", prk.isolate_plan("unroll"))
+    cases["K10"] = (lambda: dyn.dynrow(kept, 542), lambda: dyn.dynrow_plain(kept, 542),
+                    (540 * 1920 + 542 * 1920 * 4, 542 * 1920 * 5),
+                    "540 x 1920 u8, 542 steps", prk.dynrow_plan(540, 1920, 542, True))
     res = {}
     for key, (kern, plain, work, what, plan) in cases.items():
         kern()
@@ -1128,10 +1171,22 @@ def probe_timing(card, details) -> dict:
         k_ms = min(cuda_ms(kern, 5) for _ in range(2))
         p_ms = cuda_ms(plain, 1)
         b_ms, b_by = bound(*work)
-        res[key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+        res[key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        lib = ""
+        if key == "K10":  # a few microseconds on the card: take its device time
+            res[key].update(ms=device_ms(kern, "dynrow_kernel"), call_ms=k_ms)
+            lib = (f"; the call by CUDA events {k_ms:.4f} ms (the host's issue time), the "
+                   f"kernel's device time by the profiler")
+            k_ms = res[key]["ms"]
+        if key.startswith("K8 mm"):
+            lib_ms = mm_library_ms(key[3:], G * W // 128, mm_iters)
+            res[key]["library_ms"] = lib_ms
+            lib = (f"; an iteration {k_ms / mm_iters * 1e3:.4f} us, one PyTorch call of its "
+                   f"product {lib_ms / mm_iters * 1e3:.4f} us ({lib_ms:.4f} ms for {mm_iters})")
         log(f"[13 probe timing] {key} ({what}): {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), {b_ms / k_ms:.3f} of it"
-            + (f"; plan {plan_line(plan)}" if plan else "") + f" | {card}")
+            f"bound {b_ms:.4f} ms ({b_by}), {b_ms / k_ms:.3f} of it{lib}"
+            + f"; plan {plan_line(plan)}"
+            + f" | {card}")
     details["probe_kernel_ms"] = res
     return res
 
@@ -1369,7 +1424,8 @@ def main() -> int:
     # 12. the probe kernels vs their plain versions, 13. the cost-model path
     t0 = time.perf_counter()
     probe_res = phase_probe_matrix(details)
-    log(f"[12 probe kernels vs plain] K8 {probe_res['K8'][0]} arms, K9 "
+    log(f"[12 probe kernels vs plain] K8 {probe_res['K8'][0]} line and step arms and "
+        f"{probe_res['K8mm'][0]} mm arms, K9 "
         f"{probe_res['K9'][0]} arms (bigslab@1 raises in both), K10 "
         f"{probe_res['K10'][0]} cases bit-equal on the card in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1435,18 +1491,20 @@ def main() -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,
         })
-    for key, name, replaces, lkey in (
-        ("K8", "calibrate kernels (K8: line, mm and step arms)",
+    for key, ekey, name, replaces, lkey in (
+        ("K8", "K8", "line_kernel, step_kernel (K8 line and step arms; timed: mix)",
          "tools/calibrate_vpu.py:351", "calibrate"),
-        ("K9", "isolate_kernel (K9)", "tools/archive/isolate_step.py:126", "isolate"),
-        ("K10", "dynrow_kernel (K10)", "tools/archive/probe_pool_dynrow.py:26", "dynrow"),
+        ("K8 mmbf16", "K8mm", "mm_kernel, mmf32_kernel (K8 mm arms; timed: mmbf16)",
+         "tools/calibrate_vpu.py:230", "mm"),
+        ("K9", "K9", "isolate_kernel (K9)", "tools/archive/isolate_step.py:126", "isolate"),
+        ("K10", "K10", "dynrow_kernel (K10)", "tools/archive/probe_pool_dynrow.py:26", "dynrow"),
     ):
         m = probe_ms[key]
         kernels.append({
             "name": name, "route": "cuda", "source": PROBE_SOURCE, "replaces": replaces,
-            "launches": probe_launches[lkey], "max_abs_err": probe_res[key][1],
+            "launches": probe_launches[lkey], "max_abs_err": probe_res[ekey][1],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": None,
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })
     if any(k["max_abs_err"] != 0.0 for k in kernels):
         raise AssertionError(f"a kernel disagrees with its twin: {kernels}")

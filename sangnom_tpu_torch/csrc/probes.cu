@@ -2,15 +2,17 @@
 //
 // Replaces the TPU package's tool kernels:
 //   K8  tools/calibrate_vpu.py::_kernel (launched by _run): op-class rate
-//       arms, here line_kernel (integer and shift arms), mm_kernel (the
-//       permutation-matrix arms) and step_kernel (the kernel-step mocks);
+//       arms, here line_kernel (integer and shift arms), mm_kernel and
+//       mmf32_kernel (the permutation-matrix arms) and step_kernel (the
+//       kernel-step mocks);
 //   K9  tools/archive/isolate_step.py::_kernel: isolate_kernel;
 //   K10 tools/archive/probe_pool_dynrow.py::_kernel: dynrow_kernel.
 //
 // The TPU ran each as a sequential grid of `steps` steps over scratch that
-// persists in VMEM.  Here one launch walks every step: each block owns
-// independent lines of the state and keeps them in registers, and writes
-// out[t] at the end of step t.
+// persists in VMEM.  Here one launch walks every step of K8 and K9: each
+// block owns independent lines of the state and keeps them in registers, and
+// writes out[t] at the end of step t.  K10's steps never depended on each
+// other, so its launch is parallel over them.
 //
 // Layout (line_kernel, step_kernel, isolate_kernel): a thread owns C
 // contiguous columns of its line (a template parameter: 4 in line_kernel, 8
@@ -30,7 +32,8 @@
 // rollvshift's second chain) keep a shared store and a static-offset load
 // every iteration, which is what they measure; both take 16-byte windows.
 // The permutation-matrix arms multiply on the tensor cores with mma.sync
-// (bf16 -> f32, s8 -> s32), mmf32 on the FP32 cores.
+// (bf16 -> f32, s8 -> s32), A fragments by ldmatrix from a swizzled operand
+// tile, and mmf32 register-tiled on the FP32 cores (mm_kernel).
 //
 // What bounds them: the dependent chains, the shuffles and, for lines of
 // several warps, one barrier an exchange; not bytes: each probe reads its
@@ -54,7 +57,6 @@
 namespace {
 
 constexpr int kG = 120;  // rows of the probes' input slab
-constexpr int kE = 8;    // mm_kernel: elements of mmroll's line a thread
 constexpr int kIsoW = 2048;
 constexpr int kLineC = 4;    // line_kernel: columns a thread
 constexpr int kIsoC = 8;     // isolate_kernel: columns a thread
@@ -280,21 +282,63 @@ using RollWindow = Window<C, (SH > 0 ? SH : 0), (SH < 0 ? -SH : 0)>;
 
 // ---- K10: three clamped rows a step --------------------------------------
 
-// One thread a column; rows (t, t+1, t+2) clamped at H-1 ride a register
-// window, so each kept element is read once.
+constexpr int kDynR = 2;         // dynrow_kernel: output rows a thread
+constexpr int kDynThreads = 128;
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The output rows never depend on each other, so the launch is parallel
+// over them: thread i owns the V = 16 / sizeof(T) contiguous columns of
+// group i % groups (16 u8 or 4 i32, one 16-byte load a row) in kDynR
+// consecutive output rows t0 = (i / groups) * kDynR ...  It computes each
+// clamped row index min(t + d, H - 1) itself (the dynamic row read the probe
+// asks about), loads the kDynR + 2 rows it needs and writes its rows as
+// 16-byte stores.  A group past S, or a row that is not 16-byte aligned
+// (S not a multiple of 16 / sizeof(T), or of 4 for the output), goes element
+// by element.  Bound: bytes (the plane read once, the output written once).
 template <typename T>
-__global__ void dynrow_kernel(const T* __restrict__ kept, int32_t* __restrict__ out,
-                              int H, int S, int steps) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= S) return;
-  int32_t r0 = kept[c];
-  int32_t r1 = kept[(long long)min(1, H - 1) * S + c];
-  int32_t r2 = kept[(long long)min(2, H - 1) * S + c];
-  for (int t = 0; t < steps; ++t) {
-    out[(long long)t * S + c] = wadd(wadd(wmul(r0, 3), wmul(r1, 5)), wmul(r2, 7));
-    r0 = r1;
-    r1 = r2;
-    r2 = kept[(long long)min(t + 3, H - 1) * S + c];
+__global__ void __launch_bounds__(kDynThreads)
+dynrow_kernel(const T* __restrict__ kept, int32_t* __restrict__ out, int H, int S,
+              int steps, int groups) {
+  constexpr int V = 16 / sizeof(T);
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int t0 = static_cast<int>(i / groups) * kDynR;
+  if (t0 >= steps) return;
+  const int c0 = static_cast<int>(i % groups) * V;
+  const int n = min(V, S - c0);
+  int32_t v[kDynR + 2][V];
+#pragma unroll
+  for (int j = 0; j < kDynR + 2; ++j) {
+    const T* p = kept + (long long)min(t0 + j, H - 1) * S + c0;
+    if (n == V && aligned16(p)) {
+      const uint4 q = *reinterpret_cast<const uint4*>(p);
+      const uint32_t wd[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        v[j][e] = sizeof(T) == 1 ? static_cast<int32_t>((wd[e / 4] >> (8 * (e % 4))) & 0xFF)
+                                 : static_cast<int32_t>(wd[e]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[j][e] = e < n ? static_cast<int32_t>(p[e]) : 0;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kDynR; ++r) {
+    if (t0 + r >= steps) break;
+    int32_t o[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      o[e] = wadd(wadd(wmul(v[r][e], 3), wmul(v[r + 1][e], 5)), wmul(v[r + 2][e], 7));
+    int32_t* q = out + (long long)(t0 + r) * S + c0;
+    if (n == V && aligned16(q)) {
+      st_vec<V>(q, o);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        if (e < n) q[e] = o[e];
+    }
   }
 }
 
@@ -496,198 +540,308 @@ line_kernel(const int32_t* __restrict__ src, int32_t* __restrict__ out, int w,
   }
 }
 
-// Permutation-matrix arms on z [r, 128], r = G*w/128 rows, each row its
-// own chain z, wv = z @ m + wv, z.  A block owns a tile of 16 rows: z in
-// shared memory (two buffers), wv in registers at the owning thread's
-// output positions.  mma arms: warp q computes columns 16q..16q+15 (two
-// n-tiles), its B fragments of m (given transposed, [n][k]) held in
-// registers for the whole launch.  mmf32: thread (col, row parity) sums
-// the 128 products of 8 rows in order, m row-major in shared memory.
-// mmroll also runs the roll+add chain of input row blockIdx.x on its first
-// w/8 threads and adds both parts into out (zeroed by the caller).
+// Permutation-matrix arms on z [r, 128], r = G*w/128 rows, each row its own
+// chain z, wv = z @ m + wv, z: k x steps dense 128 x 128 products.  A row's
+// next product needs its whole previous row as K, so rows are the only free
+// parallelism: a block owns a tile of 16 rows (rows >= r compute on zeros and
+// are never written), with one warp on each of the SM's 4 sub-partitions.
+// Each iteration's state passes through an empty asm, so no tile's work
+// (rows 120.. are never read back) can be dropped.  Bound: the products'
+// operations (tensor-core bf16 or s8, FP32 FMA for mmf32); the barrier an
+// iteration is the exchange the column split needs.
+//
+// mm_kernel, the tensor-core arms (mma.sync m16n8k16 bf16 -> f32 for mmbf16
+// and mmroll, m16n8k32 s8 -> s32 for mmint8): warp q owns columns 32q ..
+// 32q+31, four n-tiles whose four independent accumulators interleave over
+// the k-steps, with its B fragments of m (given transposed, [n][k]) held in
+// registers for the whole launch.  The f32 (s32) z and wv of a thread's
+// accumulator positions stay in registers; only the operand, bf16(z) or s8 z,
+// goes through shared memory, double-buffered, its 16-byte chunks swizzled
+// by row (chunk ^ (row & 7)) so that the ldmatrix.x4 of an A fragment and the
+// stores of the new z are free of bank conflicts.  mmroll also runs the
+// roll+add chain of input line blockIdx.x, C = 16 contiguous columns a thread
+// (the first w / 16 threads): the roll by 1 takes the left lane's last value
+// by __shfl_up_sync, and each warp's last value crosses to the next warp (the
+// line's last to its first) through shared memory behind the tile's barrier.
+// Both parts add into out (zeroed by the caller).
+constexpr int kMmWarps = 4;             // mm_kernel: warps a block
+constexpr int kMmThreads = 32 * kMmWarps;
+constexpr int kMmNT = 16 / kMmWarps;    // n-tiles (8 columns) a warp
+constexpr int kRollC = 16;              // mmroll's line: columns a thread
+constexpr int kF32Threads = 128;        // mmf32_kernel: 4 x 4 patches of a tile
+
+__device__ __forceinline__ void opaquef(float& v) { asm("" : "+f"(v)); }
+
+// The four 8 x 8 b16 matrices of an A fragment; lane l gives the address of
+// row l & 7 of matrix l >> 3.
+__device__ __forceinline__ void ldsm_x4(uint32_t a[4], const unsigned char* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(s)
+               : "memory");
+}
+
+// Byte offset of byte b of tile row `row` in a [16][RB] swizzled operand tile.
+template <int RB>
+__device__ __forceinline__ int swz(int row, int b) {
+  return row * RB + (((b >> 4) ^ (row & 7)) << 4) + (b & 15);
+}
+
 template <int ARM>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kMmThreads, 1)
 mm_kernel(const int32_t* __restrict__ src, const void* __restrict__ mv,
           int32_t* __restrict__ out, int w, int k, int steps) {
-  using Z = typename std::conditional<ARM == kMmint8, int8_t, float>::type;
-  constexpr int ZW = 16 * 128;
+  constexpr bool S8 = ARM == kMmint8;
+  constexpr bool ROLL = ARM == kMmroll;
+  constexpr int RB = 128 * (S8 ? 1 : 2);  // operand bytes of a tile row
+  constexpr int TB = 16 * RB;             // of a tile
+  constexpr int NKS = S8 ? 4 : 8;         // k-steps of a product (32 bytes of k each)
+  using Acc = typename std::conditional<S8, int32_t, float>::type;
   extern __shared__ __align__(16) unsigned char msm[];
-  Z* zb = reinterpret_cast<Z*>(msm);  // [2][16][128]
-  unsigned char* after = msm + 2 * ZW * sizeof(Z);
-  float* mf = reinterpret_cast<float*>(after);  // mmf32: m [128][128]
-  int32_t* xb = reinterpret_cast<int32_t*>(after);  // mmroll: [2][w]
+  unsigned char* zs = msm;                                  // [2][16][RB], swizzled
+  int32_t* eb = reinterpret_cast<int32_t*>(msm + 2 * TB);   // mmroll: [2][kMmWarps]
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
   const int r = kG * w / 128;
-  const int tiles = (r + 15) / 16;
-  const bool has_tile = blockIdx.x < tiles;
   const int row0 = blockIdx.x * 16;
-  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, tig = lane & 3;
+  const bool has_tile = row0 < r;  // mmroll's blocks past the last tile run the line alone
 
-  for (int i = tid; i < ZW; i += blockDim.x) {
-    const int row = row0 + i / 128, c = i % 128;
-    const int32_t zv = (row * 7 + c * 13) % 251;
-    zb[i] = ARM == kMmint8 ? static_cast<Z>(wrap8(zv)) : static_cast<Z>(zv);
+  uint32_t bfr[NKS][kMmNT][2];
+  {
+    const unsigned char* mb = static_cast<const unsigned char*>(mv);
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks)
+#pragma unroll
+      for (int j = 0; j < kMmNT; ++j) {
+        const unsigned char* q = mb + ((kMmNT * warp + j) * 8 + g) * RB + ks * 32 + tig * 4;
+        bfr[ks][j][0] = __ldg(reinterpret_cast<const unsigned*>(q));
+        bfr[ks][j][1] = __ldg(reinterpret_cast<const unsigned*>(q + 16));
+      }
   }
-  if (ARM == kMmf32)
-    for (int i = tid; i < 128 * 128; i += blockDim.x)
-      mf[i] = static_cast<const float*>(mv)[i];
-
-  // This thread's output positions: 8 (row, col) pairs.
-  int prow[8], pcol[8];
-  if (ARM == kMmf32) {
+  // z and wv at the thread's accumulator positions: n-tile j, q = 0..3 is
+  // row g + 8 (q >> 1), column (kMmNT warp + j) 8 + 2 tig + (q & 1).
+  Acc z[kMmNT][4], wv[kMmNT][4];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) { prow[q] = (tid >> 7) + 2 * q; pcol[q] = tid & 127; }
-  } else {
+  for (int j = 0; j < kMmNT; ++j)
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int nt = 2 * warp + (q >> 2);
-      prow[q] = g + ((q & 2) ? 8 : 0);
-      pcol[q] = nt * 8 + tig * 2 + (q & 1);
-    }
-  }
-  float wvf[8];
-  int32_t wvi[8];
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const int32_t v0 = ((row0 + prow[q]) * 11 + pcol[q] * 5) % 241;
-    wvi[q] = wrap8(v0);
-    wvf[q] = static_cast<float>(v0);
-  }
-  // B fragments: bf16 8 k-steps x 2 n-tiles, s8 4 x 2.
-  uint32_t bfr[8][2][2];
-  if (ARM == kMmbf16 || ARM == kMmroll || ARM == kMmint8) {
-    const int nks = ARM == kMmint8 ? 4 : 8;
-    const int kstep = ARM == kMmint8 ? 32 : 16;
-    const int per = ARM == kMmint8 ? 4 : 2;  // k values per 32-bit word
-#pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (ks < nks) {
-          const int n = (2 * warp + h) * 8 + g;
-          const int kk = ks * kstep + tig * per;
-          const int esz = ARM == kMmint8 ? 1 : 2;
-          const unsigned char* base =
-              static_cast<const unsigned char*>(mv) + ((long long)n * 128 + kk) * esz;
-          bfr[ks][h][0] = ld32(base);
-          bfr[ks][h][1] = ld32(base + (kstep / 2) * esz);
-        }
+    for (int q = 0; q < 4; ++q) {
+      const int row = row0 + g + 8 * (q >> 1);
+      const int col = (kMmNT * warp + j) * 8 + 2 * tig + (q & 1);
+      const int32_t zv = row < r ? (row * 7 + col * 13) % 251 : 0;
+      const int32_t wvv = row < r ? (row * 11 + col * 5) % 241 : 0;
+      if constexpr (S8) {
+        z[j][q] = wrap8(zv);
+        wv[j][q] = wrap8(wvv);
+      } else {
+        z[j][q] = static_cast<float>(zv);
+        wv[j][q] = static_cast<float>(wvv);
       }
     }
-  }
-
-  // mmroll's line
-  const int T = w / kE;
-  const bool has_line = ARM == kMmroll && blockIdx.x < kG && tid < T;
-  int32_t x[kE], y[kE];
+  auto put = [&](unsigned char* zt) {  // the operand of z into a tile buffer
 #pragma unroll
-  for (int e = 0; e < kE; ++e) {
-    x[e] = has_line ? src[(long long)blockIdx.x * w + tid + e * T] : 0;
-    y[e] = x[e] ^ 0x55AA55;
+    for (int j = 0; j < kMmNT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = swz<RB>(g + 8 * h, ((kMmNT * warp + j) * 8 + 2 * tig) * (S8 ? 1 : 2));
+        if constexpr (S8)
+          *reinterpret_cast<uint16_t*>(zt + o) =
+              static_cast<uint16_t>((z[j][2 * h] & 0xFF) | ((z[j][2 * h + 1] & 0xFF) << 8));
+        else
+          *reinterpret_cast<uint32_t*>(zt + o) = pack_bf16(z[j][2 * h], z[j][2 * h + 1]);
+      }
+  };
+  put(zs);
+
+  const int TL = w / kRollC;  // mmroll: the line's threads
+  const bool own = ROLL && tid < TL;
+  const int last_warp = (TL - 1) >> 5;
+  int32_t x[ROLL ? kRollC : 1], y[ROLL ? kRollC : 1];
+  if constexpr (ROLL) {
+#pragma unroll
+    for (int e = 0; e < kRollC; ++e) x[e] = 0;
+    if (own) ld_vec<kRollC>(src + (long long)blockIdx.x * w + tid * kRollC, x);
+#pragma unroll
+    for (int e = 0; e < kRollC; ++e) y[e] = x[e] ^ 0x55AA55;
   }
   __syncthreads();
 
+  // lane l's ldmatrix row: matrices 0-3 are rows 0-7 / 8-15 of the k-step's
+  // low 8 k, then of its high 8 (s8: 16 k)
+  const int arow = (lane & 7) + 8 * ((lane >> 3) & 1), ahi = lane >> 4;
   int p = 0;
-  float zf[8];
-  int32_t zi[8];
   for (int s = 0; s < steps; ++s) {
     for (int it = 0; it < k; ++it) {
-      const Z* zc = zb + p * ZW;
-      Z* zn = zb + (p ^ 1) * ZW;
-      int32_t* xc = xb + p * w;
-      if (has_line) {
-#pragma unroll
-        for (int e = 0; e < kE; ++e) xc[tid + e * T] = x[e];
+      int32_t left = 0;
+      if constexpr (ROLL) {
+        left = __shfl_up_sync(kFull, x[kRollC - 1], 1);
+        if (own && (lane == 31 || tid == TL - 1)) eb[p * kMmWarps + warp] = x[kRollC - 1];
       }
       if (has_tile) {
-        if (ARM == kMmf32) {
-          float acc[8];
+        const unsigned char* zc = zs + p * TB;
+        Acc c[kMmNT][4];
 #pragma unroll
-          for (int q = 0; q < 8; ++q) acc[q] = 0.0f;
-          for (int i = 0; i < 128; ++i) {
-            const float mval = mf[i * 128 + pcol[0]];
+        for (int j = 0; j < kMmNT; ++j)
 #pragma unroll
-            for (int q = 0; q < 8; ++q)
-              acc[q] = __fadd_rn(acc[q], __fmul_rn(zc[prow[q] * 128 + i], mval));
-          }
+          for (int q = 0; q < 4; ++q) c[j][q] = 0;
 #pragma unroll
-          for (int q = 0; q < 8; ++q) zf[q] = acc[q];
-        } else if (ARM == kMmint8) {
-          int32_t c[2][4] = {};
+        for (int ks = 0; ks < NKS; ++ks) {
+          uint32_t a[4];
+          ldsm_x4(a, zc + arow * RB + (((2 * ks + ahi) ^ (arow & 7)) << 4));
 #pragma unroll
-          for (int ks = 0; ks < 4; ++ks) {
-            const int8_t* z8 = reinterpret_cast<const int8_t*>(zc);
-            uint32_t a[4];
-            a[0] = ld32(z8 + g * 128 + ks * 32 + tig * 4);
-            a[1] = ld32(z8 + (g + 8) * 128 + ks * 32 + tig * 4);
-            a[2] = ld32(z8 + g * 128 + ks * 32 + 16 + tig * 4);
-            a[3] = ld32(z8 + (g + 8) * 128 + ks * 32 + 16 + tig * 4);
-            mma_s8(c[0], a, bfr[ks][0][0], bfr[ks][0][1]);
-            mma_s8(c[1], a, bfr[ks][1][0], bfr[ks][1][1]);
-          }
-#pragma unroll
-          for (int q = 0; q < 8; ++q) zi[q] = c[q >> 2][q & 3];
-        } else {
-          float c[2][4] = {};
-          const float* zz = reinterpret_cast<const float*>(zc);
-#pragma unroll
-          for (int ks = 0; ks < 8; ++ks) {
-            const int k0 = ks * 16 + tig * 2;
-            uint32_t a[4];
-            a[0] = pack_bf16(zz[g * 128 + k0], zz[g * 128 + k0 + 1]);
-            a[1] = pack_bf16(zz[(g + 8) * 128 + k0], zz[(g + 8) * 128 + k0 + 1]);
-            a[2] = pack_bf16(zz[g * 128 + k0 + 8], zz[g * 128 + k0 + 9]);
-            a[3] = pack_bf16(zz[(g + 8) * 128 + k0 + 8], zz[(g + 8) * 128 + k0 + 9]);
-            mma_bf16(c[0], a, bfr[ks][0][0], bfr[ks][0][1]);
-            mma_bf16(c[1], a, bfr[ks][1][0], bfr[ks][1][1]);
-          }
-#pragma unroll
-          for (int q = 0; q < 8; ++q) zf[q] = c[q >> 2][q & 3];
-        }
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int pos = prow[q] * 128 + pcol[q];
-          if (ARM == kMmint8) {
-            const int32_t old = zc[pos];
-            zi[q] = wrap8(wadd(zi[q], wvi[q]));
-            wvi[q] = old;
-            zn[pos] = static_cast<Z>(zi[q]);
-          } else {
-            const float old = zc[pos];
-            zf[q] = __fadd_rn(zf[q], wvf[q]);
-            wvf[q] = old;
-            zn[pos] = static_cast<Z>(zf[q]);
+          for (int j = 0; j < kMmNT; ++j) {
+            if constexpr (S8) mma_s8(c[j], a, bfr[ks][j][0], bfr[ks][j][1]);
+            else mma_bf16(c[j], a, bfr[ks][j][0], bfr[ks][j][1]);
           }
         }
+#pragma unroll
+        for (int j = 0; j < kMmNT; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            Acc nz;
+            if constexpr (S8) nz = wrap8(wadd(c[j][q], wv[j][q]));
+            else nz = __fadd_rn(c[j][q], wv[j][q]);
+            wv[j][q] = z[j][q];
+            z[j][q] = nz;
+            if constexpr (S8) {
+              opaque(z[j][q]);
+              opaque(wv[j][q]);
+            } else {
+              opaquef(z[j][q]);
+              opaquef(wv[j][q]);
+            }
+          }
+        put(zs + (p ^ 1) * TB);
       }
       __syncthreads();
-      if (has_line) {
+      if constexpr (ROLL) {  // x, y = roll(x, 1) + y, x
+        if (own && lane == 0) left = eb[p * kMmWarps + (warp == 0 ? last_warp : warp - 1)];
+        int32_t nx[kRollC];
+        nx[0] = wadd(left, y[0]);
 #pragma unroll
-        for (int e = 0; e < kE; ++e) {
-          const int32_t xo = x[e];
-          x[e] = wadd(xc[wrapi(tid + e * T - 1, w)], y[e]);
-          y[e] = xo;
+        for (int e = 1; e < kRollC; ++e) nx[e] = wadd(x[e - 1], y[e]);
+#pragma unroll
+        for (int e = 0; e < kRollC; ++e) {
+          y[e] = x[e];
+          x[e] = nx[e];
+          opaque(x[e]);
+          opaque(y[e]);
         }
       }
       p ^= 1;
     }
     if (has_tile) {
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int row = row0 + prow[q];
-        if (row < kG) {
-          const int32_t v = ARM == kMmint8 ? zi[q] : __float2int_rz(zf[q]);
-          int32_t* o = out + ((long long)s * kG + row) * 128 + pcol[q];
-          if (ARM == kMmroll) atomicAdd(o, v); else *o = v;
+      for (int j = 0; j < kMmNT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + g + 8 * h;
+          if (row >= kG) continue;
+          int32_t v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if constexpr (S8) v[e] = z[j][2 * h + e];
+            else v[e] = __float2int_rz(z[j][2 * h + e]);
+          }
+          int32_t* o = out + ((long long)s * kG + row) * 128 + (kMmNT * warp + j) * 8 + 2 * tig;
+          if constexpr (ROLL) {
+            atomicAdd(o, v[0]);
+            atomicAdd(o + 1, v[1]);
+          } else {
+            *reinterpret_cast<int2*>(o) = make_int2(v[0], v[1]);
+          }
         }
+    }
+    if constexpr (ROLL) {
+      if (own && tid * kRollC < 128) {
+        int32_t* o = out + ((long long)s * kG + blockIdx.x) * 128 + tid * kRollC;
+#pragma unroll
+        for (int e = 0; e < kRollC; ++e) atomicAdd(o + e, x[e]);
       }
     }
-    if (has_line) {
+  }
+}
+
+// mmf32 on the FP32 cores: a thread owns a 4 x 4 patch of its tile (rows
+// 4 (lane & 3) .., columns 4 (8 warp + lane / 4) ..).  z goes through shared
+// memory k-major ([k][16 rows], double-buffered) and m row-major ([k][128]),
+// so per k one 16-byte load brings the patch's 4 row values and one its 4 m
+// values for 16 FMAs; a warp's loads are 4 and 8 distinct 16-byte words, one
+// wavefront each.  Each output sums its 128 products in k order.  FMA leaves
+// every bit as a product and an add would: m's entries are 0 and 1 and z is
+// never negative, so each output is one exact product plus exact zeros, until
+// overflow gives +inf and then NaN (inf * 0), which casts to 0.
+__global__ void __launch_bounds__(kF32Threads, 1)
+mmf32_kernel(const float* __restrict__ mv, int32_t* __restrict__ out, int w, int k,
+             int steps) {
+  extern __shared__ __align__(16) float fsm[];
+  float* mf = fsm;              // m [128][128]
+  float* zt = fsm + 128 * 128;  // z^T [2][128 k][16 rows]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = lane & 3, cg = 8 * warp + (lane >> 2);
+  const int r = kG * w / 128;
+  const int row0 = blockIdx.x * 16;
+  for (int i = tid; i < 128 * 128 / 4; i += blockDim.x)
+    reinterpret_cast<float4*>(mf)[i] = __ldg(reinterpret_cast<const float4*>(mv) + i);
+  float z[4][4], wv[4][4];  // [i][j]: row row0 + 4 rg + i, column 4 cg + j
 #pragma unroll
-      for (int e = 0; e < kE; ++e)
-        if (tid + e * T < 128)
-          atomicAdd(out + ((long long)s * kG + blockIdx.x) * 128 + tid + e * T, x[e]);
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = row0 + 4 * rg + i, col = 4 * cg + j;
+      z[i][j] = row < r ? static_cast<float>((row * 7 + col * 13) % 251) : 0.0f;
+      wv[i][j] = row < r ? static_cast<float>((row * 11 + col * 5) % 241) : 0.0f;
+    }
+  auto put = [&](float* zb) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(zb + (4 * cg + j) * 16 + 4 * rg) =
+          make_float4(z[0][j], z[1][j], z[2][j], z[3][j]);
+  };
+  put(zt);
+  __syncthreads();
+
+  const float4* m4 = reinterpret_cast<const float4*>(mf);
+  int p = 0;
+  for (int s = 0; s < steps; ++s) {
+    for (int it = 0; it < k; ++it) {
+      const float4* zc = reinterpret_cast<const float4*>(zt + p * 128 * 16);
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+#pragma unroll 16
+      for (int kk = 0; kk < 128; ++kk) {
+        const float4 a = zc[kk * 4 + rg], b = m4[kk * 32 + cg];
+        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float nz = __fadd_rn(acc[i][j], wv[i][j]);
+          wv[i][j] = z[i][j];
+          z[i][j] = nz;
+          opaquef(z[i][j]);
+          opaquef(wv[i][j]);
+        }
+      put(zt + (p ^ 1) * 128 * 16);
+      __syncthreads();
+      p ^= 1;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + 4 * rg + i;
+      if (row < kG)
+        *reinterpret_cast<int4*>(out + ((long long)s * kG + row) * 128 + 4 * cg) =
+            make_int4(__float2int_rz(z[i][0]), __float2int_rz(z[i][1]),
+                      __float2int_rz(z[i][2]), __float2int_rz(z[i][3]));
     }
   }
 }
@@ -1180,14 +1334,26 @@ Grid line_grid(int w) {
   return {C, multi ? TL : 32, (ARM == kRollSub ? w : kG) / lpb, 4 * words};
 }
 
-// mm_kernel<ARM>: 16-row tiles of 8 warps; its fixed layout counts as C = kE.
+// mm_kernel<ARM> (mmf32: mmf32_kernel): a block a 16-row tile, at least one
+// a line (kG) for mmroll; shared memory holds the operand tile twice and
+// mmroll's warp edges (mmf32: m and z^T twice).  C: the contiguous columns of
+// a thread's piece, an accumulator pair (2), mmroll's line (kRollC) or
+// mmf32's 4 x 4 patch (4).
 template <int ARM>
 Grid mm_grid(int w) {
   const int tiles = (kG * w / 128 + 15) / 16;
-  int smem = 2 * 16 * 128 * (ARM == kMmint8 ? 1 : 4);
-  if (ARM == kMmf32) smem += 128 * 128 * 4;
-  if (ARM == kMmroll) smem += 2 * w * 4;
-  return {kE, 256, ARM == kMmroll && tiles < kG ? kG : tiles, smem};
+  if (ARM == kMmf32) return {4, kF32Threads, tiles, (128 * 128 + 2 * 128 * 16) * 4};
+  const bool roll = ARM == kMmroll;
+  return {roll ? kRollC : 2, kMmThreads, roll && tiles < kG ? kG : tiles,
+          2 * 16 * 128 * (ARM == kMmint8 ? 1 : 2) + (roll ? 2 * kMmWarps * 4 : 0)};
+}
+
+// dynrow_kernel<T>: C = 16 / sizeof(T) columns and kDynR output rows a
+// thread, one thread a (row group, column group), kDynThreads a block.
+Grid dynrow_grid(int esz, int S, int steps) {
+  const int C = 16 / esz;
+  const long long n = (long long)((S + C - 1) / C) * ((steps + kDynR - 1) / kDynR);
+  return {C, kDynThreads, static_cast<int>((n + kDynThreads - 1) / kDynThreads), 0};
 }
 
 // step_kernel's C: 8, or 4 where w / 8 threads would be several warps but
@@ -1270,18 +1436,23 @@ cudaError_t launch_isolate(int arm, int cols, int shift, int blocks, int threads
 
 extern "C" {
 
-// K10: kept [H, S] (u8 = 1: uint8, else int32) -> out [steps, 1, S] int32.
+// K10: kept [H, S] (u8 = 1: uint8, else int32) -> out [steps, 1, S] int32,
+// on the grid of tools/probe_kernel.dynrow_plan (C = cols columns and rows
+// output rows a thread, blocks, threads, shared bytes), which must be
+// dynrow_grid's.
 int sno_probe_dynrow_launch(int u8, const void* kept, void* out, int H, int S, int steps,
+                            int cols, int rows, int blocks, int threads, int smem,
                             void* stream) {
+  if (H < 1 || S < 1 || steps < 1 || rows != kDynR) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int grid = (S + 255) / 256;
-  if (u8)
-    dynrow_kernel<uint8_t><<<grid, 256, 0, st>>>(static_cast<const uint8_t*>(kept),
-                                                 static_cast<int32_t*>(out), H, S, steps);
-  else
-    dynrow_kernel<int32_t><<<grid, 256, 0, st>>>(static_cast<const int32_t*>(kept),
-                                                 static_cast<int32_t*>(out), H, S, steps);
-  return static_cast<int>(cudaGetLastError());
+  const Grid need = dynrow_grid(u8 ? 1 : 4, S, steps);
+  const int groups = (S + need.cols - 1) / need.cols;
+  int32_t* o = static_cast<int32_t*>(out);
+  return static_cast<int>(
+      u8 ? go(need, dynrow_kernel<uint8_t>, cols, blocks, threads, smem, st,
+              static_cast<const uint8_t*>(kept), o, H, S, steps, groups)
+         : go(need, dynrow_kernel<int32_t>, cols, blocks, threads, smem, st,
+              static_cast<const int32_t*>(kept), o, H, S, steps, groups));
 }
 
 // K8: one arm (the Arm code) on src [120, w] int32 -> out [steps, 120, 128]
@@ -1318,7 +1489,11 @@ int sno_probe_calibrate_launch(int arm, int cols, const void* src_, const void* 
     e = go(mm_grid<A>(w), mm_kernel<A>, cols, blocks, threads, smem, st, src, m, out, w, \
            k, steps);                                                                     \
     break;
-    SNO_MM(kMmbf16) SNO_MM(kMmf32) SNO_MM(kMmint8) SNO_MM(kMmroll)
+    SNO_MM(kMmbf16) SNO_MM(kMmint8) SNO_MM(kMmroll)
+    case kMmf32:
+      e = go(mm_grid<kMmf32>(w), mmf32_kernel, cols, blocks, threads, smem, st,
+             static_cast<const float*>(m), out, w, k, steps);
+      break;
 #undef SNO_MM
 #define SNO_STEP(A)                                                                         \
   case A:                                                                                   \

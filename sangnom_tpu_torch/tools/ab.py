@@ -31,8 +31,8 @@ def card() -> str:
 def ptxas_report(tree: Path, name_re: str) -> list[str]:
     """Build ``tree``'s kernel library with ptxas -v; the registers and spill
     lines of each kernel instantiation whose mangled name matches
-    ``name_re`` (a regex whose first group names the kernel and second its
-    template arguments)."""
+    ``name_re`` (a regex whose first group names the kernel and second, if
+    it matched, its template arguments)."""
     code = "from sangnom_tpu_torch.ops import deint_kernel as dk; dk.build(verbose=True)"
     p = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
                        text=True, env={**os.environ, "PYTHONPATH": str(tree)})
@@ -46,7 +46,8 @@ def ptxas_report(tree: Path, name_re: str) -> list[str]:
             continue
         name = re.search(name_re, fn) if fn else None
         if name and ("Used" in line or "spill" in line):
-            out.append(f"{name.group(1)}<{name.group(2)}>: {line.split(':', 1)[-1].strip()}")
+            out.append(f"{name.group(1)}<{name.group(2) or ''}>: "
+                       f"{line.split(':', 1)[-1].strip()}")
     return out
 
 

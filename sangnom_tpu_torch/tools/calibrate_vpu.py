@@ -12,7 +12,8 @@ y), x``) on a [G, w] int32 slab, ``k`` iterations per step, carried over
 ``steps`` sequential steps inside one launch; step t writes ``out[t]``.
 
 ``run`` launches ``csrc/probes.cu``'s K8 kernels on a CUDA tensor
-(``probe_kernel.LAUNCHES["calibrate"]``) and ``run_plain`` on a CPU tensor.
+(``probe_kernel.LAUNCHES["calibrate"]``, the mm arms' under "mm") and
+``run_plain`` on a CPU tensor.
 The lines are independent: a row of the slab for arms that shift along the
 last axis, a column for ``roll_sub``; the transposed ``t*`` arms shift
 along the rows of the [w, G] slab, which are again the G rows of the input.
@@ -21,7 +22,9 @@ Each thread keeps C contiguous columns of its line in registers (C = 4, or
 warp shuffles, and a line of several warps trades each warp's edge values
 through shared memory behind one barrier.  The ``mm*`` and ``stepm*`` arms
 multiply by 0/1 permutation matrices on the tensor cores (``mma.sync``:
-bf16 -> f32, s8 -> s32), ``mmf32`` on the FP32 cores.
+bf16 -> f32, s8 -> s32), ``mmf32`` on the FP32 cores; an mm launch gives a
+block each 16-row tile of the state, its new z exchanged through shared
+memory once an iteration.
 
 Method (``main``): each arm is timed at two chain lengths K1 < K2 and the
 rate is the differential ``(K2 - K1) * ops * steps * G * w / (t(K2) -

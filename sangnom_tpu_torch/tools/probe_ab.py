@@ -1,4 +1,4 @@
-"""The probe kernels K8 and K9 of this checkout against another's, in turns.
+"""The probe kernels K8-K10 of this checkout against another's, in turns.
 
     python -m sangnom_tpu_torch.tools.probe_ab OTHER_CHECKOUT [--reps N] [--rounds R]
 
@@ -12,13 +12,16 @@ checkout and times by CUDA events, on the tools' [120, 2048] input (seed 0):
 
   - every K8 arm (``calibrate_vpu.OPS_PER_ITER``) at both chain lengths of
     the calibration's differential (32 and 96 iterations a step, 4 and 12
-    for the step arms), 512 steps, and ``mix`` at k 96 over 32 steps (the
-    case ``chip_smoke.py`` times);
+    for the step arms), 512 steps, and ``mix`` and the four mm arms at k 96
+    over 32 steps (the cases ``chip_smoke.py`` times);
   - K9's default arms (``isolate_step.DEFAULT_ARMS`` but ``bigslab@1``,
-    which raises), 8 steps.
+    which raises), 8 steps;
+  - K10 on the 540 x 1920 plane over 542 steps, u8 and i32: the call by
+    CUDA events (which, for a launch of a few microseconds, is the host's
+    time to issue it) and the kernel's device time by torch.profiler.
 
 The outputs must agree bit for bit (SHA-256 of an 8-step run, and of the
-timed run for the two ``chip_smoke.py`` cases) across the checkouts; the
+timed run for the ``chip_smoke.py`` cases) across the checkouts; the
 command exits nonzero otherwise.  It prints each case's best ms per
 checkout, and each K8 arm's differential rate in Tops/s.
 Needs one CUDA card.
@@ -36,6 +39,29 @@ K8_STEPS = 512
 K9_STEPS = 8
 
 
+def device_ms(fn, kernel: str, n: int = 20) -> float:
+    """Mean device time of one launch of ``kernel`` (a substring of its
+    name) over ``n`` calls of ``fn``, by torch.profiler: for a launch of a
+    few microseconds, CUDA events around back-to-back calls time the host's
+    issue of them instead."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and kernel in e.key]
+    launches = sum(e.count for e in ev)
+    if not launches:
+        raise AssertionError(f"the profiler traced no {kernel} launch")
+    return sum(e.self_device_time_total for e in ev) / 1e3 / launches
+
+
 def worker(reps: int) -> dict:
     """Time this process's probe kernels on every case."""
     import numpy as np
@@ -43,6 +69,7 @@ def worker(reps: int) -> dict:
 
     from sangnom_tpu_torch.tools import calibrate_vpu as cv
     from sangnom_tpu_torch.tools import isolate_step as iso
+    from sangnom_tpu_torch.tools import probe_pool_dynrow as dyn
 
     src = torch.from_numpy(np.random.default_rng(0).integers(0, 255, (cv.G, cv.W))).to(
         "cuda", torch.int32)
@@ -68,14 +95,22 @@ def worker(reps: int) -> dict:
         for k in cv.chain_lengths(kind):
             case(f"K8 {kind} k{k}", lambda kind=kind, k=k: cv.run(src, kind, k, steps=K8_STEPS),
                  lambda kind=kind, k=k: cv.run(src, kind, k, steps=8))
-    mix = lambda: cv.run(src, "mix", 96, steps=32)  # noqa: E731
-    case("K8 mix k96 s32", mix, mix)
+    for kind in ("mix",) + cv.MM_KINDS:
+        run = lambda kind=kind: cv.run(src, kind, 96, steps=32)  # noqa: E731
+        case(f"K8 {kind} k96 s32", run, run)
     for arm in iso.DEFAULT_ARMS:
         kind, _, k = arm.partition("@")
         if kind == "bigslab":
             continue
         run = lambda kind=kind, k=int(k): iso.run(src, kind, k, steps=K9_STEPS)  # noqa: E731
         case(f"K9 {arm}", run, run)
+    for dtype in (np.uint8, np.int32):
+        kept = torch.from_numpy(dyn.probe_input(dtype, 540, 1920)).to("cuda")
+        run = lambda kept=kept: dyn.dynrow(kept, 542)  # noqa: E731
+        name = f"K10 {np.dtype(dtype).name} 540x1920 s542"
+        case(name, run, run)
+        res[f"{name} device"] = {"ms": [device_ms(run, "dynrow_kernel") for _ in range(3)],
+                                 "sha256": res[name]["sha256"]}
     return {"device": torch.cuda.get_device_name(0), "cases": res}
 
 
@@ -127,7 +162,7 @@ def main(argv: list[str] | None = None) -> int:
     trees = {"other": a.other.resolve(), "this": HERE}
     for tag in trees:
         for line in ab.ptxas_report(trees[tag],
-                                    r"((?:line|mm|step|isolate|dynrow)_kernel)I(\w+?)EEv"):
+                                    r"((?:line|mm|mmf32|step|isolate|dynrow)_kernel)(?:I(\w+?)EEv|E)"):
             print(f"[ptxas {tag}] {line}", flush=True)
     ms = ab.run_turns(
         ["other", "this"], a.rounds,

@@ -1,17 +1,18 @@
 """ctypes bindings of the probe kernels in ``csrc/probes.cu``.
 
 ``dynrow`` launches K10 (``dynrow_kernel``), ``calibrate`` K8
-(``line_kernel`` and, for the mm and step arms, ``mm_kernel`` and
-``step_kernel``) and ``isolate`` K9 (``isolate_kernel``).  The kernels are
-built with the rest of the library (``ops.deint_kernel.build``).  Each
-function checks its tensors, launches or raises, and adds one to its
-``LAUNCHES`` count.
+(``line_kernel`` and ``step_kernel``, counted as "calibrate", and for the
+mm arms ``mm_kernel`` or ``mmf32_kernel``, counted as "mm") and ``isolate``
+K9 (``isolate_kernel``).  The kernels are built with the rest of the library
+(``ops.deint_kernel.build``).  Each function checks its tensors, launches
+or raises, and adds one to its ``LAUNCHES`` count.
 
-``line_plan`` and ``isolate_plan`` give the grid a K8 or K9 launch runs on
-(the launcher passes their numbers to the kernel library, which refuses a
-grid its kernel's layout does not need): C columns a thread, threads and
-blocks, the route of the rolls, the exchanges and block barriers a chain
-iteration, and the shared bytes.
+``line_plan``, ``isolate_plan`` and ``dynrow_plan`` give the grid a K8, K9
+or K10 launch runs on (the launcher passes their numbers to the kernel
+library, which refuses a grid its kernel's layout does not need): C columns
+a thread, threads and blocks, the route of the rolls, the exchanges and
+block barriers a chain iteration, the shared bytes and K10's output rows a
+thread.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 from sangnom_tpu_torch.ops import deint_kernel as dk
 
 # Kernel launches since import (or since the caller last reset them).
-LAUNCHES = {"dynrow": 0, "calibrate": 0, "isolate": 0}
+LAUNCHES = {"dynrow": 0, "calibrate": 0, "mm": 0, "isolate": 0}
 
 # Arm name -> the kernel's arm code (csrc/probes.cu enum Arm / IsoArm).
 CALIBRATE_CODES = {name: i for i, name in enumerate((
@@ -63,24 +64,35 @@ _STEP = ("stepv", "stepm", "stepmbf", "steph")
 _STEP_EDGE_WORDS = 16  # step_kernel: edge words a warp an exchange
 _ISO_EDGE_WORDS = 24   # isolate_kernel: the same
 _PAD = 16              # padded scratch columns past the line
+_MM_THREADS = 128      # mm_kernel: 4 warps a 16-row tile (kMmThreads)
+_F32_THREADS = 128     # mmf32_kernel: 4 x 4 patches of a tile (kF32Threads)
+_ROLL_COLS = 16        # mmroll's line: columns a thread (kRollC)
+_DYN_ROWS = 2          # dynrow_kernel: output rows a thread (kDynR)
+_DYN_THREADS = 128     # kDynThreads
 
 
 class Plan(NamedTuple):
     """One K8 or K9 launch (``csrc/probes.cu``), as the launcher runs it.
 
-    ``cols``: C, the contiguous columns a thread owns (mm arms: 8, their
-    fixed layout).  ``route``: how a chain iteration moves values between
+    ``cols``: C, the contiguous columns a thread owns (mm arms: a
+    tensor-core accumulator pair, 2; mmroll's line, 16; mmf32's 4 x 4
+    patch, 4; K10: 16 bytes of a row).  ``route``: how a chain iteration
+    moves values between
     threads: "none" (no exchange), "shuffle" (registers and warp shuffles;
     a line of several warps also trades each warp's edge values through
     shared memory behind one barrier), "line" (the whole line through a
     shared buffer, for shifts of C columns or more), "pad" (a shared store
     and a static-offset load, what vshift1/vshift6 measure), "shuffle+pad"
     (rollvshift: x through shuffles, u through the padded scratch) or
-    "matrix" (mm_kernel's tensor-core product).  ``exchanges``: rolls of a
-    line (or a tap round) a chain iteration; ``barriers``: block barriers
+    "matrix" (the mm arms' product of a 16-row tile, the new z through
+    shared memory), "matrix+shuffle" (mmroll: the product, and its line
+    through shuffles and warp edges) or "vector" (K10: 16-byte loads and
+    stores, no exchange).  ``exchanges``: rolls of a line (or a tap round,
+    or the tile's operand) a chain iteration; ``barriers``: block barriers
     a chain iteration; ``smem_bytes``: dynamic shared memory.  ``shift``:
     K9 ramtN's shift on the shuffle route (-3..3), the launcher's template
-    choice; 0 elsewhere."""
+    choice; 0 elsewhere.  ``rows``: K10's output rows a thread; 1
+    elsewhere."""
 
     cols: int
     threads: int
@@ -90,6 +102,7 @@ class Plan(NamedTuple):
     barriers: int
     smem_bytes: int
     shift: int = 0
+    rows: int = 1
 
 
 def step_cols(w: int) -> int:
@@ -107,11 +120,17 @@ def line_plan(kind: str, w: int) -> Plan:
     if kind not in CALIBRATE_CODES:
         raise ValueError(f"calibration kernel: unknown arm {kind!r}")
     if kind in _MM:
+        # a block a 16-row tile of z [G*w/128, 128] (mmroll: at least one a
+        # line); shared memory holds the operand tile twice (bf16 or s8) and
+        # mmroll's warp edges, mmf32's m [128, 128] and z^T [128, 16] twice
         tiles = (_G * w // 128 + 15) // 16
-        blocks = _G if kind == "mmroll" and tiles < _G else tiles
-        smem = 2 * 16 * 128 * (1 if kind == "mmint8" else 4)
-        smem += 128 * 128 * 4 if kind == "mmf32" else 2 * w * 4 if kind == "mmroll" else 0
-        return Plan(8, 256, blocks, "matrix", 1, 1, smem)
+        if kind == "mmf32":
+            return Plan(4, _F32_THREADS, tiles, "matrix", 1, 1, (128 * 128 + 2 * 128 * 16) * 4)
+        tile_bytes = 2 * 16 * 128 * (1 if kind == "mmint8" else 2)
+        if kind == "mmroll":
+            return Plan(_ROLL_COLS, _MM_THREADS, max(tiles, _G), "matrix+shuffle", 2, 1,
+                        tile_bytes + 2 * (_MM_THREADS // 32) * 4)
+        return Plan(2, _MM_THREADS, tiles, "matrix", 1, 1, tile_bytes)
     n = _G if kind == "roll_sub" else w
     cols = step_cols(w) if kind in _STEP else LINE_COLS
     lanes = n // cols
@@ -173,6 +192,19 @@ def isolate_plan(kind: str) -> Plan:
     return Plan(*grid, "shuffle", rolls + taps, rolls, edges)
 
 
+def dynrow_plan(H: int, S: int, steps: int, u8: bool) -> Plan:
+    """K10's launch on a [H, S] plane (u8, else i32) over ``steps`` output
+    rows: thread i owns the C = 16 / itemsize contiguous columns of group
+    i % groups (groups = ceil(S / C)) in the ``rows`` output rows from
+    (i // groups) * rows, ``threads`` a block, enough blocks for every
+    (row group, column group) pair."""
+    if H < 1 or S < 1 or steps < 1:
+        raise ValueError(f"dynamic-row probe: empty plane or no steps ({H}, {S}, {steps})")
+    cols = 16 if u8 else 4
+    n = -(-S // cols) * -(-steps // _DYN_ROWS)
+    return Plan(cols, _DYN_THREADS, -(-n // _DYN_THREADS), "vector", 0, 0, 0, rows=_DYN_ROWS)
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -183,7 +215,7 @@ def _lib() -> ctypes.CDLL:
     lib = dk._load()
     if not _bound:
         i, p = ctypes.c_int, ctypes.c_void_p
-        lib.sno_probe_dynrow_launch.argtypes = [i, p, p, i, i, i, p]
+        lib.sno_probe_dynrow_launch.argtypes = [i, p, p, i, i, i, i, i, i, i, i, p]
         lib.sno_probe_calibrate_launch.argtypes = [i, i, p, p, p, i, i, i, i, i, i, p]
         lib.sno_probe_isolate_launch.argtypes = [i, i, i, i, i, p, p, i, i, i, i, i, p]
         for f in (lib.sno_probe_dynrow_launch, lib.sno_probe_calibrate_launch,
@@ -215,10 +247,13 @@ def dynrow(kept: torch.Tensor, steps: int) -> torch.Tensor:
     out = torch.empty((steps, 1, S), dtype=torch.int32, device=kept.device)
     if not out.numel():
         return out
+    u8 = kept.dtype == torch.uint8
+    plan = dynrow_plan(H, S, steps, u8)
     lib = _lib()
     with torch.cuda.device(kept.device):
-        err = lib.sno_probe_dynrow_launch(int(kept.dtype == torch.uint8), kept.data_ptr(),
-                                          out.data_ptr(), H, S, steps, _stream(kept))
+        err = lib.sno_probe_dynrow_launch(int(u8), kept.data_ptr(), out.data_ptr(), H, S,
+                                          steps, plan.cols, plan.rows, plan.blocks,
+                                          plan.threads, plan.smem_bytes, _stream(kept))
     dk._check(lib, err, f"{name} launch")
     LAUNCHES["dynrow"] += 1
     return out
@@ -253,7 +288,7 @@ def calibrate(src: torch.Tensor, kind: str, k: int, steps: int,
             None if m is None else m.data_ptr(), out.data_ptr(), w, k, steps, plan.blocks,
             plan.threads, plan.smem_bytes, _stream(src))
     dk._check(lib, err, f"{name} launch")
-    LAUNCHES["calibrate"] += 1
+    LAUNCHES["mm" if kind in _MM else "calibrate"] += 1
     return out
 
 

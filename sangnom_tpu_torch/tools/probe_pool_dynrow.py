@@ -8,10 +8,12 @@ last row.  ``dynrow`` computes, for t in 0..steps-1,
     out[t, 0] = 3*kept[min(t, H-1)] + 5*kept[min(t+1, H-1)] + 7*kept[min(t+2, H-1)]
 
 in int32 from a u8 or i32 plane [H, S].  On a CUDA tensor it launches
-``csrc/probes.cu::dynrow_kernel`` (one thread a column walking every step
-with a three-row register window; ``probe_kernel.LAUNCHES["dynrow"]``); on a
-CPU tensor it runs ``dynrow_plain``, clamped gathers.  ``steps > H`` is the
-point of the probe: the clamp repeats the last row.
+``csrc/probes.cu::dynrow_kernel``, parallel over output rows and 16-byte
+column groups: a thread computes its clamped row indices, loads the rows it
+needs and writes a few output rows (``probe_kernel.dynrow_plan``;
+``probe_kernel.LAUNCHES["dynrow"]``); on a CPU tensor it runs
+``dynrow_plain``, clamped gathers.  ``steps > H`` is the point of the
+probe: the clamp repeats the last row.
 """
 
 from __future__ import annotations

@@ -40,8 +40,12 @@ from sangnom_tpu_torch.ops.primitives import KernelSpec
 # can still do two counted operations in one issue.
 PEAK_BYTES_S = 3.35e12
 PEAK_INT32_S = 128 * 132 * 1.98e9
-# Dense bf16 tensor-core FLOP/s (H100 SXM data sheet), for the mm arms.
+# Dense tensor-core rates (H100 SXM data sheet), for the mm arms: bf16
+# FLOP/s and int8 OP/s; and the FP32 cores' FMA rate, 128 FMA lanes a clock
+# x 132 SMs x 1.98 GHz, an FMA counted as two FLOPs (mmf32).
 PEAK_BF16_S = 989e12
+PEAK_INT8_S = 1979e12
+PEAK_FP32_S = 132 * 128 * 2 * 1.98e9
 # The counterpart of the TPU package's VPU_PEAK_OPS, for ``utilization``.
 INT32_PEAK_OPS = {"h100": PEAK_INT32_S}
 # int32 operations the algorithm needs, per column (reference

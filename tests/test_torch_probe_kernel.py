@@ -45,10 +45,11 @@ def _equal(got, want, kind=""):
 def test_calibrate_arm_on_card(cuda, kind):
     src = _src(cuda)
     k = 2 if kind in cv.STEP_KINDS else 3
+    key = "mm" if kind in cv.MM_KINDS else "calibrate"
     for w in (256, 128):
-        before = pk.LAUNCHES["calibrate"]
+        before = pk.LAUNCHES[key]
         got = cv.run(src, kind, k, w=w, steps=4)
-        assert pk.LAUNCHES["calibrate"] == before + 1
+        assert pk.LAUNCHES[key] == before + 1
         _equal(got, cv.run_plain(src, kind, k, w=w, steps=4), kind)
 
 
@@ -70,13 +71,26 @@ def test_line_and_step_arms_on_card(cuda, kind, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", cv.DEFAULT_ARMS + ("mmbf16", "mmint8", "stepv", "stepm"))
+@pytest.mark.parametrize("kind", cv.DEFAULT_ARMS + cv.MM_KINDS + ("stepv", "stepm"))
 def test_calibrate_full_shape_on_card(cuda, kind):
     """Full G x W, 8 steps, at the differential's long chain (past the f32
-    overflow for the mm arms)."""
+    overflow for the mm arms: inf, then NaN from inf * 0, cast to 0)."""
     src = _src(cuda)
     k = cv.chain_lengths(kind)[1]
     _equal(cv.run(src, kind, k, steps=8), cv.run_plain(src, kind, k, steps=8), kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [128, 384])
+@pytest.mark.parametrize("kind", cv.MM_KINDS)
+def test_mm_arms_ragged_tiles_on_card(cuda, kind, w):
+    """The mm arms where the last 16-row tile is ragged (r = 120 and 360
+    rows), over 288 iterations: past the f32 overflow."""
+    src = _src(cuda)
+    got = cv.run(src, kind, 96, w=w, steps=3)
+    _equal(got, cv.run_plain(src, kind, 96, w=w, steps=3), kind)
+    if kind in ("mmbf16", "mmf32"):
+        assert got[0].any() and not got[-1].any()  # finite, then NaN cast to 0
 
 
 @pytest.mark.cuda
@@ -108,14 +122,14 @@ def test_isolate_arm_sweep_on_card(cuda, arm):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("field", ["cols", "threads", "blocks", "smem_bytes"])
-@pytest.mark.parametrize("kind", ["mix", "vshift6", "roll_sub", "stepv", "mmbf16", "unroll",
-                                  "ramt130", "ramt2047"])
+@pytest.mark.parametrize("kind", ["mix", "vshift6", "roll_sub", "stepv", "mmbf16", "mmf32",
+                                  "mmint8", "unroll", "ramt130", "ramt2047", "dynrow"])
 def test_launcher_refuses_a_plan_off_the_layout(cuda, monkeypatch, kind, field):
     """The library holds a plan to the grid the kernel's layout needs: a
     plan with another C, thread or block count, or too few shared bytes,
     raises instead of launching."""
     k9 = kind in ("unroll", "ramt130", "ramt2047")
-    name = "isolate_plan" if k9 else "line_plan"
+    name = "isolate_plan" if k9 else "dynrow_plan" if kind == "dynrow" else "line_plan"
     right = getattr(pk, name)
 
     def off(*args):
@@ -128,7 +142,9 @@ def test_launcher_refuses_a_plan_off_the_layout(cuda, monkeypatch, kind, field):
     src = _src(cuda)
     before = dict(pk.LAUNCHES)
     with pytest.raises(RuntimeError):
-        if k9:
+        if kind == "dynrow":
+            dyn.dynrow(torch.from_numpy(dyn.probe_input(np.uint8)).to(cuda), 70)
+        elif k9:
             iso.run(src, kind, 1, steps=1)
         else:
             cv.run(src, kind, 1, steps=1)
@@ -143,9 +159,14 @@ def test_isolate_bigslab_raises_on_card(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.int32, np.uint8])
-@pytest.mark.parametrize("shape", [(64, 256, 70), (540, 1920, 542)])
+@pytest.mark.parametrize("shape", [(64, 256, 70), (540, 1920, 542), (60, 1000, 30), (5, 17, 9)])
 def test_dynrow_on_card(cuda, dtype, shape):
+    """K10 on aligned rows and on rows that are not 16-byte aligned (S =
+    1000 and 17: 8 and 1 columns past the last whole u8 group), with steps
+    past H (the clamp repeats the last row)."""
     H, S, steps = shape
     kept = torch.from_numpy(dyn.probe_input(dtype, H, S)).to(cuda)
+    before = pk.LAUNCHES["dynrow"]
     _equal(dyn.dynrow(kept, steps), dyn.dynrow_plain(kept, steps))
+    assert pk.LAUNCHES["dynrow"] == before + 1
     assert dyn.run(dtype, H, S, steps)

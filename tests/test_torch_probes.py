@@ -160,7 +160,8 @@ def test_line_plan_cases():
     """The timed cases and one plan of each route: mix on [120, 2048] is one
     line a block of 16 warps with 4 edge words a warp; trolladd8's shift of
     8 columns takes the whole line; the step arms take C = 4 where 8 would
-    not give whole warps (w = 384)."""
+    not give whole warps (w = 384); an mm arm's block is a 16-row tile of 4
+    warps with its operand tile in shared memory twice."""
     P = pk.Plan
     assert pk.line_plan("mix", 2048) == P(4, 512, 120, "shuffle", 1, 1, 2 * 16 * 4)
     assert pk.line_plan("mix", 128) == P(4, 32, 120, "shuffle", 1, 0, 0)
@@ -171,7 +172,62 @@ def test_line_plan_cases():
     assert pk.line_plan("stepv", 2048) == P(8, 256, 120, "shuffle", 4, 3, 2 * 16 * 8 * 4)
     assert pk.line_plan("stepv", 384) == P(4, 96, 120, "shuffle", 4, 3, 2 * 16 * 3 * 4)
     assert pk.line_plan("stepv", 128) == P(8, 32, 120, "shuffle", 4, 0, 0)
-    assert pk.line_plan("mmbf16", 2048) == P(8, 256, 120, "matrix", 1, 1, 2 * 16 * 128 * 4)
+    assert pk.line_plan("mmbf16", 2048) == P(2, 128, 120, "matrix", 1, 1, 2 * 16 * 128 * 2)
+
+
+@pytest.mark.parametrize("w", [128, 384, 2048])
+@pytest.mark.parametrize("kind", cv.MM_KINDS)
+def test_mm_plan_cases(kind, w):
+    """An mm arm covers all r / 16 tiles of z [r, 128], r = G * w / 128
+    (the last one ragged at w = 128 and 384), one a block of 4 warps;
+    mmroll takes at least a block for each of the G input lines.  Shared
+    memory: the operand tile twice (bf16 or s8), mmroll's 4 warps' edge
+    words twice; mmf32 m [128, 128] and z^T [128, 16] twice in f32."""
+    r = cv.G * w // 128
+    tiles = -(-r // 16)
+    assert (r, tiles) == {128: (120, 8), 384: (360, 23), 2048: (1920, 120)}[w]
+    want = {
+        "mmbf16": pk.Plan(2, 128, tiles, "matrix", 1, 1, 2 * 16 * 128 * 2),
+        "mmint8": pk.Plan(2, 128, tiles, "matrix", 1, 1, 2 * 16 * 128),
+        "mmf32": pk.Plan(4, 128, tiles, "matrix", 1, 1, (128 * 128 + 2 * 128 * 16) * 4),
+        "mmroll": pk.Plan(16, 128, max(tiles, cv.G), "matrix+shuffle", 2, 1,
+                          2 * 16 * 128 * 2 + 2 * 4 * 4),
+    }[kind]
+    assert pk.line_plan(kind, w) == want
+    # mmroll's line: 16 columns a thread fit the block's threads at every width
+    assert w // 16 <= want.threads
+
+
+DYNROW_SHAPES = [(64, 256, 70), (540, 1920, 542), (60, 1000, 30), (5, 17, 9)]
+
+
+@pytest.mark.parametrize("u8", [True, False])
+@pytest.mark.parametrize("shape", DYNROW_SHAPES)
+def test_dynrow_plan_covers_each_cell_once(shape, u8):
+    """K10's grid: thread i owns the C contiguous columns of group i % groups
+    in rows (i // groups) * R .. + R - 1; every (t, column) of the output
+    is some thread's exactly once, and the threads past it own nothing."""
+    H, S, steps = shape
+    plan = pk.dynrow_plan(H, S, steps, u8)
+    assert (plan.cols, plan.threads, plan.route, plan.smem_bytes) == (
+        16 if u8 else 4, 128, "vector", 0)
+    groups = -(-S // plan.cols)
+    cover = np.zeros((steps, S), np.int64)
+    i = np.arange(plan.blocks * plan.threads)
+    t0, c0 = i // groups * plan.rows, i % groups * plan.cols
+    for r in range(plan.rows):
+        for e in range(plan.cols):
+            t, c = t0 + r, c0 + e
+            ok = (t < steps) & (c < S)
+            np.add.at(cover, (t[ok], c[ok]), 1)
+    assert (cover == 1).all()
+    # no block is launched past the last (row group, column group)
+    assert (plan.blocks - 1) * plan.threads < groups * -(-steps // plan.rows)
+
+
+def test_dynrow_plan_rejects_empty():
+    with pytest.raises(ValueError):
+        pk.dynrow_plan(0, 16, 4, True)
 
 
 @pytest.mark.parametrize("arm", list(iso.KINDS) + [
@@ -230,15 +286,17 @@ class _Recorder:
         return run
 
 
+@pytest.mark.parametrize("shape", DYNROW_SHAPES)
 @pytest.mark.parametrize("dtype", [np.int32, np.uint8])
-def test_dynrow_matches_jax(monkeypatch, dtype):
+def test_dynrow_matches_jax(monkeypatch, dtype, shape):
+    H, S, steps = shape
     mod = _load("_jax_probe_pool_dynrow", "tools/archive/probe_pool_dynrow.py")
     rec = _Recorder(mod.pl)
     monkeypatch.setattr(mod, "pl", rec)
-    assert mod.run(dtype)
-    got = dyn.dynrow(torch.from_numpy(dyn.probe_input(dtype)), 70).numpy()
+    assert mod.run(dtype, H, S, steps)
+    got = dyn.dynrow(torch.from_numpy(dyn.probe_input(dtype, H, S)), steps).numpy()
     np.testing.assert_array_equal(got, rec.outs[0])
-    assert dyn.run(dtype, device="cpu")
+    assert dyn.run(dtype, H, S, steps, device="cpu")
 
 
 @pytest.mark.parametrize("fmt_name", ["GRAY8", "YUV420P8", "YUV422P10", "YUV444PS"])
