@@ -22,16 +22,27 @@ and plain versions with CUDA events.  Last, the cost-model path: the probe
 kernels K8-K10 (``csrc/probes.cu``) held bit-equal to their plain versions,
 then the op-class calibration at full shape, the step-isolation arms and the
 dynamic-row probe through their entry points, the measured rates and the
-cost model's prediction of K1's row step against phase 5's time.  Each phase prints one line; any
+cost model's prediction of K1's row step against phase 5's time.  Phase 14,
+last: the CLI (``sangnom_tpu_torch.cli.main``: ``--bob`` whole
+and windowed, ``--dh``, ``--pool-compat`` whole and windowed, the
+``script`` verb) and the AviSynth-model host at 1080 from y4m file to y4m
+file, SHA-equal to phases 4 and 7's outputs, with their launch counts,
+frames/s end to end, stage times and the card's idle share.  Each phase
+prints one line or more; any
 failure raises, so the script exits nonzero and never prints the final
 ``"ok"`` line.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import hashlib
+import io
 import json
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1191,6 +1202,241 @@ def probe_timing(card, details) -> dict:
     return res
 
 
+CLI_WINDOW = 8  # --window of the windowed CLI runs; the hosts' batch
+POOL_WINDOW = 4  # --window of the windowed pool_compat CLI run
+BOB_RECIPE = "AssumeTFF()\nSeparateFields()\nDoubleWeave()\nSangNom2(order=0)\n"
+
+
+def _file_sha(path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for chunk in iter(lambda: fh.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _y4m_sha(clip, fps) -> str:
+    """SHA-256 of ``write_y4m(clip, fps=fps)``, the bytes a CLI run must
+    write."""
+    from sangnom_tpu_torch.io import write_y4m
+
+    buf = io.BytesIO()
+    write_y4m(buf, clip, fps=fps)
+    return hashlib.sha256(buf.getbuffer()).hexdigest()
+
+
+def check_launches(what: str, got: dict, want: dict, at_least: bool = False) -> None:
+    """Raise unless the launch counts equal their formula (with ``at_least``:
+    reach it in every kernel)."""
+    if (any(got.get(k, 0) < v for k, v in want.items()) if at_least else got != want):
+        raise AssertionError(f"{what}: launches {got}, formula {want}")
+
+
+def _launch_counts(dk, pk) -> dict:
+    return {"deint": dk.LAUNCHES, **{k: v for k, v in pk.LAUNCHES.items() if v}}
+
+
+def _profile_run(fn) -> dict:
+    """One run of ``fn`` under torch.profiler: its wall time and the device
+    time of its kernels and of its copies, so the card's idle share over
+    the run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.key.startswith("sangnom/")]
+    copies = sum(ms for k, ms in rows if k.startswith(("Memcpy", "Memset")))
+    kernels = sum(ms for k, ms in rows) - copies
+    return {"wall_ms": wall_ms, "kernel_ms": kernels, "copy_ms": copies}
+
+
+def phase_cli_hosts(tmp, fmt, bob_planes, dh_planes, pool_planes, out_bob, out_dh,
+                    api_bob_ms: float, card: str, details: dict) -> dict:
+    """Phase 14: the CLI and the hosts at 1080, from a y4m file to a y4m
+    file.  Writes phase 4's interlaced input (tff, 30000:1001), its fields
+    and phase 7's pool clip as y4m files; runs ``cli.main`` in-process:
+    ``--bob`` whole, windowed without and with the writer and reader
+    threads, and through the plain path; ``--order 1 --dh --window``;
+    ``--pool-compat --order 1`` whole and windowed; and the ``script`` verb
+    on the canonical bob recipe.  Each output file is SHA-equal to
+    ``write_y4m`` of phase 4's output (or of the API's pool_compat call on
+    phase 7's clip), and each run's kernel launches equal their formula (2
+    K1 launches a filter call, luma and fused U+V; 3 K7 launches a plane
+    pass).  Then the AviSynth-model host serves the fields through
+    ``env.invoke("SangNom2", src, order=1, dh=True)`` to 4 threads in
+    shuffled order, every frame equal to phase 4's dh output.  Times each
+    run's wall and frames/s, and for the windowed bob the read+parse,
+    upload, download and write stages alone and the card's idle share over
+    the run."""
+    from sangnom_tpu_torch import Clip, cli, sangnom2
+    from sangnom_tpu_torch.hosts.avisynth import (ArraySource, ScriptEnvironment,
+                                                  avisynth_plugin_init)
+    from sangnom_tpu_torch.io import iter_y4m, write_y4m
+    from sangnom_tpu_torch.ops import deint_kernel as dk
+    from sangnom_tpu_torch.ops import pool_carry as pc
+    from sangnom_tpu_torch.ops import pool_kernel as pk
+
+    t_phase = time.perf_counter()
+    n_in, n_fields, n_pool = bob_planes[0].shape[0], dh_planes[0].shape[0], pool_planes[0].shape[0]
+    paths = {"bob": tmp / "bob.y4m", "fields": tmp / "fields.y4m", "pool": tmp / "pool.y4m"}
+    for key, planes, ilace in (("bob", bob_planes, "t"), ("fields", dh_planes, "p"),
+                               ("pool", pool_planes, "t")):
+        write_y4m(str(paths[key]), Clip.from_numpy(planes, fmt, device="cpu"),
+                  fps=(30000, 1001), interlace=ilace)
+    pool_api = sangnom2(Clip.from_numpy(pool_planes, fmt, device=DEVICE, tff=True),
+                        order=1, pool_compat=True)
+    want = {"bob": _y4m_sha(out_bob, (60000, 1001)), "dh": _y4m_sha(out_dh, (30000, 1001)),
+            "pool": _y4m_sha(pool_api, (30000, 1001))}
+    del pool_api
+    sizes = {k: p.stat().st_size for k, p in paths.items()}
+    dims = {k: f"{p[0].shape[2]}x{p[0].shape[1]}"
+            for k, p in (("bob", bob_planes), ("fields", dh_planes), ("pool", pool_planes))}
+    log(f"[14 inputs] y4m files: {n_in} x {dims['bob']} tff ({sizes['bob']} bytes), "
+        f"{n_fields} fields {dims['fields']} ({sizes['fields']} bytes), {n_pool} x "
+        f"{dims['pool']} ({sizes['pool']} bytes); expected output SHA-256s from phase 4 "
+        f"and the API")
+
+    arm = default_pool_arm(pc)
+    passes = n_pool * 3
+    pool_formula = {"K3": {"smooth": passes}, "K6": {"split3": passes},
+                    "K7": {"prepare": passes, "split3": passes, "finalize": passes}}[arm]
+    bob_win = ["--bob", "--window", str(CLI_WINDOW)]
+    windows_bob = -(-n_in // CLI_WINDOW)
+    runs = [  # (name, input, flags, expected output, launches formula)
+        ("bob", "bob", ["--bob"], "bob", {"deint": 2}),
+        ("bob-window", "bob", bob_win + ["--no-overlap-write"], "bob",
+         {"deint": 2 * windows_bob}),
+        ("bob-window-overlap", "bob", bob_win + ["--overlap-write"], "bob",
+         {"deint": 2 * windows_bob}),
+        ("bob-window-overlap", "bob", bob_win + ["--overlap-write"], "bob",
+         {"deint": 2 * windows_bob}),
+        ("bob-window", "bob", bob_win + ["--no-overlap-write"], "bob",
+         {"deint": 2 * windows_bob}),
+        ("bob-plain", "bob", ["--bob", "--opt", "0"], "bob", {"deint": 0}),
+        ("dh-window", "fields", ["--order", "1", "--dh", "--window", str(CLI_WINDOW)], "dh",
+         {"deint": 2 * -(-n_fields // CLI_WINDOW)}),
+        ("pool", "pool", ["--pool-compat", "--order", "1"], "pool",
+         {"deint": 0, **pool_formula}),
+        ("pool-window", "pool", ["--pool-compat", "--order", "1", "--window",
+                                 str(POOL_WINDOW)], "pool", {"deint": 0, **pool_formula}),
+        ("script", "bob", None, "bob", {"deint": 2 * -(-2 * n_in // CLI_WINDOW)}),
+    ]
+    recipe = tmp / "bob.avs"
+    recipe.write_text(BOB_RECIPE)
+    frames_in = {"bob": n_in, "fields": n_fields, "pool": n_pool}
+    frames_out = {"bob": 2 * n_in, "dh": n_fields, "pool": n_pool}
+    walls: dict = {}
+    for name, src, flags, key, formula in runs:
+        out = tmp / "out.y4m"
+        argv = (["script", str(recipe), str(paths[src]), str(out)] if flags is None
+                else [str(paths[src]), str(out), *flags])
+        torch.cuda.synchronize()
+        dk.LAUNCHES = 0
+        pk.reset_launches()
+        t = time.perf_counter()
+        rc = cli.main(argv + ["--device", DEVICE])
+        wall = time.perf_counter() - t
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise AssertionError(f"CLI run {name} exited {rc}")
+        launches = _launch_counts(dk, pk)
+        if _file_sha(out) != want[key]:
+            raise AssertionError(f"CLI run {name}: output != write_y4m of the {key} output")
+        out.unlink()
+        check_launches(f"CLI run {name}", launches, formula)
+        walls.setdefault(name, []).append(wall)
+        log(f"[14 cli] {name} ({' '.join(argv[2:] if flags is not None else ['script', 'bob.avs'])}): "
+            f"{wall * 1e3:.1f} ms wall, {frames_in[src] / wall:.2f} input frames/s, "
+            f"{frames_out[key] / wall:.2f} output frames/s end to end; SHA-equal to the "
+            f"{key} output; launches {launches} = formula | {card}")
+
+    # the AviSynth-model host: 4 threads, shuffled, windows of CLI_WINDOW
+    env = ScriptEnvironment(device=DEVICE)
+    avisynth_plugin_init(env)
+    flt = env.invoke("SangNom2", ArraySource(dh_planes, fmt), order=1, dh=True,
+                     batch=CLI_WINDOW)
+    want_np = out_dh.to_numpy()
+    order = np.random.default_rng(14).permutation(n_fields)
+    bad: list = []
+
+    def serve(ns):
+        for n in ns:
+            got = flt.get_frame(int(n), env).planes
+            if not all(np.array_equal(g, w[n]) for g, w in zip(got, want_np)):
+                bad.append(int(n))
+
+    torch.cuda.synchronize()
+    dk.LAUNCHES = 0
+    t = time.perf_counter()
+    with ThreadPoolExecutor(4) as ex:
+        for fut in [ex.submit(serve, order[i::4]) for i in range(4)]:
+            fut.result(timeout=600)
+    host_wall = time.perf_counter() - t
+    if bad:
+        raise AssertionError(f"AviSynth host: frames {sorted(bad)[:8]} != phase 4's dh output")
+    check_launches("AviSynth host", {"deint": dk.LAUNCHES},
+                   {"deint": 2 * -(-n_fields // CLI_WINDOW)}, at_least=True)
+    log(f"[14 avisynth host] SangNom2(order=1, dh=True) on {n_fields} fields, windows of "
+        f"{CLI_WINDOW}, 4 threads in shuffled order: every frame equal to phase 4's dh "
+        f"output; {dk.LAUNCHES} K1 launches (2 a window computed; evicted windows "
+        f"recompute); {host_wall * 1e3:.1f} ms, {n_fields / host_wall:.2f} frames/s | {card}")
+    del want_np
+
+    # the windowed bob's stages alone, per input frame
+    t = time.perf_counter()
+    windows = list(iter_y4m(str(paths["bob"]), CLI_WINDOW, device="cpu"))
+    read_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for w in windows:
+        [p.to(DEVICE) for p in w.planes]
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t) * 1e3
+    del windows
+    t = time.perf_counter()
+    out_host = Clip([p.cpu() for p in out_bob.planes], out_bob.format, props=out_bob.props)
+    download_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    write_y4m(str(tmp / "write.y4m"), out_host, fps=(60000, 1001))
+    write_ms = (time.perf_counter() - t) * 1e3
+    (tmp / "write.y4m").unlink()
+    del out_host
+    log(f"[14 stages] windowed bob alone, per input frame (of {n_in}): read+parse "
+        f"(iter_y4m, window {CLI_WINDOW}) {read_ms / n_in:.3f} ms, upload "
+        f"{upload_ms / n_in:.3f} ms, download of the 2 output frames {download_ms / n_in:.3f} "
+        f"ms, write_y4m of them {write_ms / n_in:.3f} ms; the API call (phase 5) "
+        f"{api_bob_ms / n_in:.3f} ms | {card}")
+    prof = {}
+    for name, extra in (("bob-window", ["--no-overlap-write"]),
+                        ("bob-window-overlap", ["--overlap-write"])):
+        out = tmp / "out.y4m"
+        prof[name] = p = _profile_run(lambda: cli.main(
+            [str(paths["bob"]), str(out), *bob_win, *extra, "--device", DEVICE]))
+        out.unlink()
+        busy = p["kernel_ms"] + p["copy_ms"]
+        log(f"[14 profile] {name}: wall {p['wall_ms']:.1f} ms under the profiler; device "
+            f"kernels {p['kernel_ms']:.3f} ms, copies {p['copy_ms']:.3f} ms; idle share "
+            f"{1 - busy / p['wall_ms']:.4f} (kernels only: "
+            f"{1 - p['kernel_ms'] / p['wall_ms']:.4f}) | {card}")
+    best = {k: min(v) for k, v in walls.items()}
+    log(f"[14 summary] output frames/s end to end: CLI --bob whole {2 * n_in / best['bob']:.1f}, "
+        f"--window {CLI_WINDOW} {2 * n_in / best['bob-window']:.1f}, with --overlap-write "
+        f"{2 * n_in / best['bob-window-overlap']:.1f}, script verb "
+        f"{2 * n_in / best['script']:.1f}; the API call (phase 5) "
+        f"{2 * n_in / api_bob_ms * 1e3:.1f} | {card}")
+    res = {"wall_s": walls, "stage_ms": {"read": read_ms, "upload": upload_ms,
+                                         "download": download_ms, "write": write_ms},
+           "profile": prof, "host_wall_s": host_wall, "api_bob_ms": api_bob_ms,
+           "seconds": time.perf_counter() - t_phase}
+    details["cli_hosts"] = res
+    return res
+
+
 def main_path_inputs():
     """The bench's 1080 inputs, seed 7: 120 dh fields first, then 60
     interlaced frames."""
@@ -1400,7 +1646,7 @@ def main() -> int:
 
     # 8. pool timing
     pool_ms = phase_pool_timing(fmt, clip_hd, clip_sd, hd_pool, card, details)
-    del clip_hd, clip_sd, hd_pool
+    del clip_hd, clip_sd, hd_pool, sd
 
     # 9. the width-sharded kernels vs their plain versions on the card
     t0 = time.perf_counter()
@@ -1417,7 +1663,6 @@ def main() -> int:
     woven = double_weave(separate_fields(clip_bob))
     shard_launches = phase_sharded_main_path(clip_dh, woven, out_dh, out_bob, details)
     log(f"[10 sharded main path] done in {time.perf_counter() - t0:.1f} s")
-    del out_dh, out_bob
     shard_ms = phase_shard_timing(clip_dh, woven, card, details)
     del clip_dh, clip_bob, woven
 
@@ -1434,6 +1679,16 @@ def main() -> int:
     predicted_k1_step(rates, per_launch[0], card, details)
     probe_ms = probe_timing(card, details)
     log(f"[13 cost-model path] done in {time.perf_counter() - t0:.1f} s")
+
+    # 14. the CLI and the hosts at 1080, from y4m file to y4m file, on phases
+    # 4 and 7's inputs and outputs; last, so that its host threads and
+    # profiler sessions run after every earlier phase's measurements
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sangnom_cli_") as tmp:
+        phase_cli_hosts(Path(tmp), fmt, bob_planes, dh_planes, hd, out_bob, out_dh,
+                        min(times[("bob", "kernel")]), card, details)
+    log(f"[14 CLI and hosts] done in {time.perf_counter() - t0:.1f} s")
+    del out_dh, out_bob, hd
 
     log("[details] " + json.dumps(details))
     dk_bytes, dk_ops = 0, 0

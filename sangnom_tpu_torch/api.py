@@ -31,11 +31,14 @@ class SangNomError(ValueError):
 
 
 def _validate(name: str, clip: Clip | None, order: int, aa: int, aac: int,
-              opt: int) -> None:
+              opt: int, opt1_ok: bool | None = None) -> None:
     """The reference factories' validation rules and exact error strings
     (src/SangNom2.cpp:407-422 / 446-459).  ``clip=None`` skips the
-    clip-dependent checks, the opt=1 device gate included (SangNom2Filter
-    binds clips late)."""
+    clip-dependent checks (SangNom2Filter binds clips late).  ``opt1_ok``
+    decides the opt=1 gate when it is a bool (the AviSynth-model host passes
+    its environment's CPU-flags analogue, as the reference factory consults
+    env->GetCPUFlags, src/SangNom2.cpp:422); ``None`` lets the clip's device
+    decide, and without a clip skips the gate."""
     if clip is not None:
         _validate_geometry(name, clip.format, clip.height)
     if order < 0 or order > 2:
@@ -47,7 +50,9 @@ def _validate(name: str, clip: Clip | None, order: int, aa: int, aac: int,
     if opt < -1 or opt > 1:
         # verbatim, including the reference's off-by-one upper bound
         raise SangNomError(f"{name}: opt must be between -1..2.")
-    if opt == 1 and clip is not None and clip.device.type != "cuda":
+    if opt1_ok is None:
+        opt1_ok = clip is None or clip.device.type == "cuda"
+    if opt == 1 and not opt1_ok:
         raise SangNomError(f"{name}: opt=1 requires a CUDA backend.")
 
 

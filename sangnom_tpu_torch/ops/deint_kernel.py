@@ -9,8 +9,11 @@ version instead; on a CUDA tensor it launches the kernel or raises.
 
 The kernel library (this kernel and the pool kernels of ``ops/pool_kernel``)
 is compiled with nvcc for sm_90a at first use, one nvcc per source in
-``csrc/``, all started together, into ``sangnom_tpu_torch/_build/`` (rebuilt
-when a source or header is newer), and bound with ctypes.  ``LAUNCHES``
+``csrc/``, all started together, into ``sangnom_tpu_torch/_build/`` or the
+directory given to `set_build_dir` (rebuilt when a source or header is
+newer), and bound with ctypes; one build and load runs per process, whatever
+the number of threads that ask for the library first; launches from several
+threads are serialized (`LAUNCH_LOCK`).  ``LAUNCHES``
 counts kernel launches, so a run can show that it went through the kernel.
 """
 
@@ -20,6 +23,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -47,6 +51,17 @@ LAUNCHES = 0
 
 _lib: ctypes.CDLL | None = None
 _max_smem: dict[int, int] = {}
+# Serializes the library's build and first load: the hosts call the filter
+# from several threads, and two first calls must not both run nvcc into the
+# same object files.
+_BUILD_LOCK = threading.RLock()
+# Held around every call into the library that launches a kernel (here and
+# in ops/pool_kernel, parallel/shard_kernel, tools/probe_kernel): each
+# launcher sets its kernel's dynamic shared-memory limit to the launch's size
+# and then launches, so two host threads launching one kernel at different
+# sizes must not interleave (the launch that meets the other's smaller limit
+# fails with "invalid argument").
+LAUNCH_LOCK = threading.Lock()
 
 # Storage dtype -> the C launcher's dtype code.
 _DTYPE_CODE = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
@@ -66,15 +81,35 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def set_build_dir(path: str | os.PathLike) -> None:
+    """Build the kernel library into, and load it from, ``path`` (created
+    at the build).  Raises ValueError once the library is loaded from
+    another directory."""
+    global _BUILD_DIR, _LIB
+    new = Path(path).expanduser().resolve()
+    with _BUILD_LOCK:
+        if new == _BUILD_DIR.resolve():
+            return
+        if _lib is not None:
+            raise ValueError(f"the kernel library is already loaded from "
+                             f"{_BUILD_DIR}; cannot switch to {new}")
+        _BUILD_DIR, _LIB = new, new / _LIB.name
+
+
 def build(verbose: bool = False) -> float:
     """Compile the kernel library if it is missing or older than a source.
     Returns the seconds spent compiling (0.0 when it was up to date).
     ``verbose`` adds ptxas's register and shared-memory report to stdout."""
+    with _BUILD_LOCK:
+        return _build(verbose)
+
+
+def _build(verbose: bool) -> float:
     sources = sorted(_SRC_DIR.glob("*.cu"))
     newest = max(p.stat().st_mtime for p in _SRC_DIR.iterdir())
     if _LIB.exists() and _LIB.stat().st_mtime >= newest and not verbose:
         return 0.0
-    _BUILD_DIR.mkdir(exist_ok=True)
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{os.getpid()}.tmp"
     objs = [_BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
@@ -109,7 +144,11 @@ def build(verbose: bool = False) -> float:
 
 def _load() -> ctypes.CDLL:
     global _lib
-    if _lib is None:
+    if _lib is not None:
+        return _lib
+    with _BUILD_LOCK:
+        if _lib is not None:  # another thread loaded it while we waited
+            return _lib
         build()
         lib = ctypes.CDLL(str(_LIB))
         lib.sno_max_smem.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
@@ -250,7 +289,7 @@ def _launch(src: torch.Tensor, out: torch.Tensor, spec: KernelSpec, aaf,
                              f"{n_fields} fields")
     stream = torch.cuda.current_stream(device).cuda_stream
     in_frame_stride = src.shape[1] * w
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), LAUNCH_LOCK:
         err = lib.sno_deint_launch(
             _DTYPE_CODE[src.dtype], int(spec.sse2 and not spec.is_float), plan.cols,
             src.data_ptr(), out.data_ptr(),

@@ -158,7 +158,7 @@ def smooth_pool_(pool: torch.Tensor, spec: KernelSpec) -> torch.Tensor:
         return pool
     lib = _lib()
     code, sse2, cols, threads, stream = _common(spec, S, pool.device)
-    with torch.cuda.device(pool.device):
+    with torch.cuda.device(pool.device), dk.LAUNCH_LOCK:
         err = lib.sno_pool_smooth_launch(code, sse2, cols, pool.data_ptr(), P, S,
                                          threads, stream)
     dk._check(lib, err, f"{name} launch")
@@ -189,7 +189,7 @@ def smooth_split3_(row0: torch.Tensor, body: torch.Tensor, tail: torch.Tensor,
         return body
     lib = _lib()
     code, sse2, cols, threads, stream = _common(spec, S, body.device)
-    with torch.cuda.device(body.device):
+    with torch.cuda.device(body.device), dk.LAUNCH_LOCK:
         err = lib.sno_pool_smooth_split3_launch(
             code, sse2, cols, row0.data_ptr(), body.data_ptr(), tail.data_ptr(),
             P, S, threads, stream)
@@ -223,7 +223,7 @@ def prepare_pool_(kept: torch.Tensor, body: torch.Tensor, spec: KernelSpec) -> t
     bufH_p, w = kept.shape
     lib = _lib()
     code, sse2, _, _, stream = _common(spec, S, kept.device)
-    with torch.cuda.device(kept.device):
+    with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
         err = lib.sno_pool_prepare_launch(code, sse2, kept.data_ptr(), body.data_ptr(),
                                           kept.stride(0), P, bufH_p - 1, w, S, stream)
     dk._check(lib, err, f"{name} launch")
@@ -254,7 +254,7 @@ def finalize_pool(kept: torch.Tensor, body: torch.Tensor, aaf,
     out = torch.empty((bufH_p - 1, w), dtype=kept.dtype, device=kept.device)
     lib = _lib()
     code, sse2, _, _, stream = _common(spec, S, kept.device)
-    with torch.cuda.device(kept.device):
+    with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
         err = lib.sno_pool_finalize_launch(
             code, sse2, kept.data_ptr(), body.data_ptr(), out.data_ptr(),
             kept.stride(0), P, bufH_p - 1, w, S, float(aaf), stream)

@@ -244,7 +244,7 @@ def full_pass(kept: torch.Tensor, offsets, aaf, spec: KernelSpec, n_space: int,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(kept.device):
+    with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
         for k, (lo, hi) in enumerate(spans):
             err = lib.sno_shard_full_launch(
                 code, sse2, plan.cols, kept.data_ptr(), out.data_ptr(), ptr(offs),
@@ -277,7 +277,7 @@ def smooth_pass(raw: torch.Tensor, spec: KernelSpec, n_space: int,
     chunks = [(0, bufH - 1)] if plan.cluster else [
         (base, min(plan.R, bufH - 1 - base)) for base in range(0, bufH - 1, plan.R)]
     code, sse2, stream = _codes(spec, raw.device)
-    with torch.cuda.device(raw.device):
+    with torch.cuda.device(raw.device), dk.LAUNCH_LOCK:
         for base, steps in chunks:
             err = lib.sno_shard_smooth_launch(
                 code, sse2, plan.cols, raw.data_ptr(), out.data_ptr(), C, n_space, bufH,
@@ -300,7 +300,7 @@ def prepare(kept: torch.Tensor, spec: KernelSpec, w_glob: int) -> torch.Tensor:
     raw = torch.empty((_MAPS, N, bufH + 1, S), dtype=spec.acc_dtype, device=kept.device)
     lib = _lib()
     code, sse2, stream = _codes(spec, kept.device)
-    with torch.cuda.device(kept.device):
+    with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
         err = lib.sno_shard_prepare_launch(code, sse2, kept.data_ptr(), raw.data_ptr(),
                                            N, bufH, S, w_glob, stream)
     dk._check(lib, err, f"{name} launch")
@@ -337,7 +337,7 @@ def finalize(kept: torch.Tensor, sm: torch.Tensor, aaf, spec: KernelSpec,
                       device=kept.device)
     lib = _lib()
     code, sse2, stream = _codes(spec, kept.device)
-    with torch.cuda.device(kept.device):
+    with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
         err = lib.sno_shard_finalize_launch(
             code, sse2, kept.data_ptr(), sm.data_ptr(), out.data_ptr(),
             None if offs is None else offs.data_ptr(), N, bufH, S, weave, static_offset,
@@ -355,7 +355,7 @@ def occupancy(kernel: str, spec: KernelSpec, plan: Plan, n_space: int,
     lib = _lib()
     code, sse2, _ = _codes(spec, device)
     out = (ctypes.c_int * 4)()
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), dk.LAUNCH_LOCK:
         err = lib.sno_shard_query(0 if kernel == "full" else 1, code, sse2, plan.cols,
                                   plan.threads, plan.smem_bytes,
                                   n_space if plan.cluster else 1, out)

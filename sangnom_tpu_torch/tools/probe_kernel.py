@@ -250,7 +250,7 @@ def dynrow(kept: torch.Tensor, steps: int) -> torch.Tensor:
     u8 = kept.dtype == torch.uint8
     plan = dynrow_plan(H, S, steps, u8)
     lib = _lib()
-    with torch.cuda.device(kept.device):
+    with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
         err = lib.sno_probe_dynrow_launch(int(u8), kept.data_ptr(), out.data_ptr(), H, S,
                                           steps, plan.cols, plan.rows, plan.blocks,
                                           plan.threads, plan.smem_bytes, _stream(kept))
@@ -282,7 +282,7 @@ def calibrate(src: torch.Tensor, kind: str, k: int, steps: int,
     alloc = torch.zeros if kind == "mmroll" else torch.empty  # mmroll adds into out
     out = alloc((steps, G, 128), dtype=torch.int32, device=src.device)
     lib = _lib()
-    with torch.cuda.device(src.device):
+    with torch.cuda.device(src.device), dk.LAUNCH_LOCK:
         err = lib.sno_probe_calibrate_launch(
             CALIBRATE_CODES[kind], plan.cols, src.data_ptr(),
             None if m is None else m.data_ptr(), out.data_ptr(), w, k, steps, plan.blocks,
@@ -309,7 +309,7 @@ def isolate(src: torch.Tensor, kind: str, k: int, steps: int) -> torch.Tensor:
         base, amount = "ramt", int(base[4:]) % _W
     out = torch.empty((steps, _G, 128), dtype=torch.int32, device=src.device)
     lib = _lib()
-    with torch.cuda.device(src.device):
+    with torch.cuda.device(src.device), dk.LAUNCH_LOCK:
         err = lib.sno_probe_isolate_launch(
             ISOLATE_CODES[base], plan.cols, int(kind.endswith("_iota")), amount, plan.shift,
             src.data_ptr(), out.data_ptr(), k, steps, plan.blocks, plan.threads,

@@ -254,6 +254,38 @@ def test_kernel_shapes_on_card(cuda, n, bufH, w, stride):
 
 
 @pytest.mark.cuda
+def test_kernel_concurrent_launches_on_card(cuda):
+    """Host threads launching the kernel at once, as the frame-serving hosts
+    do, at two widths (two shared-memory sizes of one instantiation): every
+    launch succeeds and equals its plain twin."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    fmt = get_format("GRAY8")
+    spec = KernelSpec.from_format(fmt)
+    rng = np.random.default_rng(5)
+    cases = []
+    for w in (1920, 960):
+        src = torch.from_numpy(_rand(rng, (4, 17, w), fmt)).to(cuda)
+        stride = -(-w // 32) * 32
+        cases.append((src, stride,
+                      dk.deinterlace_field_batch_plain(src, 1, 62, spec, stride)))
+    from sangnom_tpu_torch.core.geometry import width_tiers
+
+    limit = dk._max_smem_bytes(dk._load(), cuda)
+    assert len({dk.launch_plan(w, width_tiers(w, 17, stride, spec)[2], 1, limit).smem_bytes
+                for w, stride in ((s.shape[2], st) for s, st, _ in cases)}) == 2
+
+    def run(k):
+        outs = [(dk.deinterlace_field_batch_fused(src, 1, 62, spec, stride), want)
+                for src, stride, want in (cases[(k + i) % 2] for i in range(40))]
+        torch.cuda.synchronize()
+        return sum(not torch.equal(got, want) for got, want in outs)
+
+    with ThreadPoolExecutor(8) as ex:
+        assert sum(ex.map(run, range(8), timeout=300)) == 0
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_bad_input_on_card(cuda):
     spec = KernelSpec.from_format(get_format("GRAY8"))
     src = torch.zeros((2, 8, 32), dtype=torch.uint16, device=cuda)
