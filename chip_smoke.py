@@ -27,7 +27,16 @@ last: the CLI (``sangnom_tpu_torch.cli.main``: ``--bob`` whole
 and windowed, ``--dh``, ``--pool-compat`` whole and windowed, the
 ``script`` verb) and the AviSynth-model host at 1080 from y4m file to y4m
 file, SHA-equal to phases 4 and 7's outputs, with their launch counts,
-frames/s end to end, stage times and the card's idle share.  Each phase
+frames/s end to end, stage times and the card's idle share.  Phase 15:
+``prewarm`` into a fresh directory and a fresh ``--aot`` process (no nvcc
+build, hits only, phase 14's bytes).  Phase 16: the six examples
+(``sangnom_tpu_torch/examples``) against the API's output.  Phase 17: the
+frame-parallel pool path (``POOL_FAST``; the batched prepare, walk and
+finalize kernels) against the sequential K7 route, its launch formula and
+its ms per frame at 16 and 14 frames a chunk.  Phase 18: two gloo
+processes on the card through ``parallel.sangnom2_multihost`` against
+phase 4's dh output (the script re-runs itself as the workers, with
+``--multihost-worker``).  Each phase
 prints one line or more; any
 failure raises, so the script exits nonzero and never prints the final
 ``"ok"`` line.  Imports nothing of JAX.
@@ -38,6 +47,7 @@ from __future__ import annotations
 import hashlib
 import io
 import json
+import subprocess
 import sys
 import tempfile
 import time
@@ -1434,7 +1444,365 @@ def phase_cli_hosts(tmp, fmt, bob_planes, dh_planes, pool_planes, out_bob, out_d
            "profile": prof, "host_wall_s": host_wall, "api_bob_ms": api_bob_ms,
            "seconds": time.perf_counter() - t_phase}
     details["cli_hosts"] = res
-    return res
+    return paths, want
+
+
+# --- phases 15-18 ------------------------------------------------------------
+
+AOT_RUN = ("import sys; from sangnom_tpu_torch import cli; "
+           "from sangnom_tpu_torch.ops import deint_kernel as dk; "
+           "rc = cli.main(sys.argv[1:]); "
+           "print('BUILDS', dk.BUILDS, 'LIB', dk.LIB_PATH, flush=True); sys.exit(rc)")
+
+
+def _subprocess(argv: list, what: str, timeout: int = 600):
+    """Run ``argv`` from the repository root; raise unless it exits 0.
+    Returns (wall seconds, stdout, stderr)."""
+    t = time.perf_counter()
+    r = subprocess.run(argv, capture_output=True, text=True, timeout=timeout,
+                       cwd=Path(__file__).resolve().parent)
+    wall = time.perf_counter() - t
+    if r.returncode != 0:
+        raise AssertionError(f"{what} exited {r.returncode}:\n{r.stdout[-2000:]}\n"
+                             f"{r.stderr[-4000:]}")
+    return wall, r.stdout, r.stderr
+
+
+def phase_prewarm(tmp, paths, want, n_in, card, details):
+    """Phase 15: ``prewarm`` into a fresh directory in a subprocess (the cold
+    cost, nvcc included), then the main verb with ``--bob --window`` and
+    ``--aot DIR`` in a fresh subprocess on phase 14's 1080i y4m: it must
+    build nothing, load the library from DIR, count only hits, and write the
+    bytes of phase 14's windowed bob.  The trailing window of 60 frames at 8
+    (4 frames) is prewarmed by a second ``prewarm --frames 4`` into the same
+    directory (no nvcc).  A fresh process with no --aot on the checkout's
+    built library is timed beside them."""
+    adir = tmp / "aot"
+    pre = [sys.executable, "-m", "sangnom_tpu_torch", "prewarm", "--aot", str(adir),
+           "--size", "1920x1080", "--format", FMT, "--bob", "--device", DEVICE]
+    cold, _, err = _subprocess(pre + ["--window", str(CLI_WINDOW)], "prewarm")
+    log(f"[15 prewarm] prewarm --bob --window {CLI_WINDOW} into a fresh directory: "
+        f"{cold:.2f} s wall (nvcc included) | {err.strip().splitlines()} | {card}")
+    tail = n_in % CLI_WINDOW
+    tail_s = 0.0
+    if tail:
+        tail_s, _, err = _subprocess(pre + ["--frames", str(tail)], "prewarm tail")
+        if "kernel library built" in err:
+            raise AssertionError("the second prewarm rebuilt the library")
+    walls = {}
+    for name, extra in (("--aot", ["--aot", str(adir)]), ("no --aot", [])):
+        out = tmp / "aot_out.y4m"
+        wall, so, se = _subprocess(
+            [sys.executable, "-c", AOT_RUN, str(paths["bob"]), str(out), "--bob",
+             "--window", str(CLI_WINDOW), "--device", DEVICE, *extra], f"main verb {name}")
+        walls[name] = wall
+        if _file_sha(out) != want["bob"]:
+            raise AssertionError(f"main verb {name}: output != phase 14's windowed bob")
+        out.unlink()
+        builds = so.split("BUILDS ")[1].split()[0]
+        lib = so.split(" LIB ")[1].strip()
+        note = next((ln for ln in se.splitlines() if ln.startswith("aot:")), "")
+        if name == "--aot":
+            hits = -(-n_in // CLI_WINDOW)
+            if builds != "0" or (DEVICE == "cuda" and Path(lib).parent != adir):
+                raise AssertionError(f"--aot run: {builds} builds, library {lib}")
+            if note != f"aot: {hits} dispatch(es) served from artifacts, 0 miss(es)":
+                raise AssertionError(f"--aot run: {note!r}")
+        log(f"[15 prewarm] fresh process, main verb --bob --window {CLI_WINDOW} {name}: "
+            f"{wall:.2f} s wall, {builds} nvcc builds, library {lib}; {note or 'no aot note'}; "
+            f"SHA-equal to phase 14's windowed bob | {card}")
+    details["prewarm"] = {"prewarm_s": cold, "prewarm_tail_s": tail_s, "run_s": walls}
+
+
+def phase_examples(tmp, paths, card, details):
+    """Phase 16: the six examples with ``--device cuda`` (in-process); the
+    five file examples on phase 14's 1080i y4m, ``sharded_batch`` on its own
+    8 x 1920x540 batch; each output file byte-equal to ``write_y4m`` of the
+    port's API output for the same call."""
+    import importlib
+
+    from sangnom_tpu_torch import Clip, bob, sangnom2
+    from sangnom_tpu_torch.io import read_y4m, write_y4m
+    from sangnom_tpu_torch.parallel import default_mesh, sangnom2_sharded
+
+    def sha(clip, **kw):
+        buf = io.BytesIO()
+        write_y4m(buf, clip, **kw)
+        return hashlib.sha256(buf.getbuffer()).hexdigest()
+
+    clip = read_y4m(str(paths["bob"]), device=DEVICE)
+    fps = clip.props["y4m_fps"]
+    host = Clip([p.cpu() for p in sangnom2(clip, order=1, aa=48, dh=True).planes],
+                clip.format)  # what the host example writes: no props
+    want = {
+        "deinterlace_file": sha(sangnom2(clip, order=1, aa=48)),
+        "antialias_2x": sha(sangnom2(clip, dh=True, aa=48, aac=0)),
+        "bob_double_rate": sha(bob(clip), fps=(fps[0] * 2, fps[1])),
+        "reference_compat": sha(sangnom2(clip, order=1, aa=48, pool_compat=True,
+                                         numerics="sse2")),
+        "avisynth_host": sha(host),
+    }
+    del host
+    rng = np.random.default_rng(0)
+    sb = Clip.from_numpy([rng.integers(0, 256, (8, h, w)).astype(np.uint8)
+                          for h, w in ((540, 1920), (270, 960), (270, 960))],
+                         FMT, device=DEVICE)
+    mesh = default_mesh() if DEVICE == "cuda" else default_mesh(devices=[DEVICE])
+    want["sharded_batch"] = sha(sangnom2_sharded(sb, mesh, order=1, dh=True))
+    del sb, clip
+    res = {}
+    for name, w in want.items():
+        mod = importlib.import_module(f"sangnom_tpu_torch.examples.{name}")
+        out = tmp / f"example_{name}.y4m"
+        argv = (["--device", DEVICE, "--out", str(out)] if name == "sharded_batch"
+                else [str(paths["bob"]), str(out), "--device", DEVICE])
+        t = time.perf_counter()
+        mod.main(argv)
+        torch.cuda.synchronize()
+        res[name] = time.perf_counter() - t
+        if _file_sha(out) != w:
+            raise AssertionError(f"example {name}: output != the API output's y4m")
+        out.unlink()
+    log(f"[16 examples] {', '.join(f'{k} {v:.2f} s' for k, v in res.items())} "
+        f"(--device {DEVICE}, wall with file I/O); each output byte-equal to the "
+        f"API's | {card}")
+    details["examples_s"] = res
+
+
+def pool_fast_inputs(fmt):
+    """The fast path's extra clip: 40 frames of 1920x1080, seed 10."""
+    from sangnom_tpu_torch import Clip
+
+    rng = np.random.default_rng(10)
+    return Clip.from_numpy([rng.integers(0, 256, (40, h, w)).astype(np.uint8)
+                            for h, w in ((1080, 1920), (540, 960), (540, 960))],
+                           fmt, device=DEVICE)
+
+
+def phase_pool_fast(fmt, clip_hd, clip_sd, card, details):
+    """Phase 17: the frame-parallel pool path (``POOL_FAST``) on pool
+    bob1080 (32 woven frames: chunks of 16), a 40-frame 1080 clip (16, 16,
+    8) and pool hd720, each bit-equal to the sequential K7 route, frames and
+    final pool, in 3 x planes x ceil(N / K) launches (planes x chunks of
+    each kernel); pool sd480 (720 in stride 736) stays on the loop.  The
+    batched prepare, walk and finalize against their plain twins at the
+    1080 luma pass of K = 16 frames, timed with their bounds; ms per output
+    frame of the fast path at K = 16 and 14 against the sequential route,
+    in turns, with the idle share.  The flags are restored after."""
+    from sangnom_tpu_torch import Clip, bob, sangnom2
+    from sangnom_tpu_torch.core.fields import double_weave, separate_fields
+    from sangnom_tpu_torch.core.geometry import aaf_as_pixel, scaled_aa_thresholds
+    from sangnom_tpu_torch.ops import pool_carry as pc
+    from sangnom_tpu_torch.ops import pool_kernel as pk
+    from sangnom_tpu_torch.ops.primitives import KernelSpec
+    from sangnom_tpu_torch.ops.sangnom import sangnom2_pool_stream as stream
+
+    rng = np.random.default_rng(9)  # phase 8's hd720 clip
+    clip_720 = Clip.from_numpy([rng.integers(0, 256, (N_720, h, w)).astype(np.uint8)
+                                for h, w in ((720, 1280), (360, 640), (360, 640))],
+                               fmt, device=DEVICE)
+    clip_40 = pool_fast_inputs(fmt)
+    woven = double_weave(separate_fields(clip_hd))
+    cases = {  # name -> (clip, stream kwargs, main-path call)
+        "bob1080": (woven, dict(order=0), lambda: bob(clip_hd, pool_compat=True)),
+        "1080x40": (clip_40, dict(order=1), lambda: sangnom2(clip_40, order=1,
+                                                             pool_compat=True)),
+        "hd720": (clip_720, dict(order=1), lambda: sangnom2(clip_720, order=1,
+                                                            pool_compat=True)),
+        "sd480": (clip_sd, dict(order=1), lambda: sangnom2(clip_sd, order=1,
+                                                           pool_compat=True)),
+    }
+    defaults = pc.POOL_FAST, pc.POOL_FAST_BATCH
+    seq = {name: stream(c, None, **kw) for name, (c, kw, _) in cases.items()}
+    launches = {}
+    try:
+        pc.POOL_FAST, pc.POOL_FAST_BATCH = True, 16
+        torch.cuda.synchronize()
+        pk.reset_launches()
+        for name, (c, kw, call) in cases.items():
+            before = dict(pk.LAUNCHES)
+            out = call()
+            torch.cuda.synchronize()
+            got = {k: pk.LAUNCHES[k] - before[k] for k in before}
+            got = {k: v for k, v in got.items() if v}
+            want_out, want_pool = seq[name]
+            for i, (g, r) in enumerate(zip(out.planes, want_out.planes)):
+                if not torch.equal(g, r):
+                    raise AssertionError(f"pool fast {name} plane {i} != the sequential "
+                                         f"route, max_abs {max_abs(g, r)}")
+            _, pool = stream(c, None, **kw)
+            if not torch.equal(pool, want_pool):
+                raise AssertionError(f"pool fast {name}: final pool != the sequential one")
+            n = c.num_frames
+            if name == "sd480":
+                formula = {k: 3 * n for k in ("prepare", "split3", "finalize")}
+            else:
+                formula = {k: 3 * -(-n // 16) for k in ("prepare", "split3", "finalize")}
+            check_launches(f"pool fast {name}", got, formula)
+            launches[name] = got
+            log(f"[17 pool fast] {name} ({n} frames, POOL_FAST_BATCH 16): frames and "
+                f"final pool bit-equal to the sequential K7 route; launches {got} = "
+                f"{'3 x planes x frames (sequential loop)' if name == 'sd480' else '3 x planes x ceil(N / 16)'}")
+
+        # the batched kernels alone at the 1080 luma pass of 16 and 14 frames;
+        # the kernels line reads K = 16, the default chunk
+        spec = KernelSpec.from_format(fmt)
+        aaf = aaf_as_pixel(scaled_aa_thresholds(48, 0, fmt)[0], fmt)
+        per = {}
+        for k_req in (16, 14):
+            K = min(k_req, woven.num_frames)
+            kept = woven.planes[0][:K, 0::2]  # strided, as the fast path reads it
+            bufH_p, w = kept.shape[1:]
+            P, S = bufH_p, w  # a stride-aligned luma plane fills its pool
+            zeros = torch.zeros((K, 9, S), dtype=torch.int32, device=DEVICE)
+            body0 = torch.zeros((K, 9, P - 1, S), dtype=torch.int32, device=DEVICE)
+            prepared = pk.prepare_batch_plain_(kept, body0.clone(), spec)
+            smoothed = pk.smooth_batch_plain_(zeros, prepared.clone(), zeros, spec)
+            stages = {
+                "prepare_batch": (
+                    lambda b=body0.clone(), kept=kept: pk.prepare_batch_(kept, b, spec),
+                    lambda b=body0.clone(), kept=kept: pk.prepare_batch_plain_(kept, b, spec),
+                    lambda kept=kept, body0=body0, prepared=prepared: max_abs(
+                        pk.prepare_batch_(kept, body0.clone(), spec), prepared),
+                    tuple(K * x for x in pool_prepare_work(bufH_p, w))),
+                "walk_batch": (
+                    lambda b=prepared.clone(), z=zeros: pk.smooth_batch_(z, b, z, spec),
+                    lambda b=prepared.clone(), z=zeros: pk.smooth_batch_plain_(z, b, z, spec),
+                    lambda z=zeros, prepared=prepared, smoothed=smoothed: max_abs(
+                        pk.smooth_batch_(z, prepared.clone(), z, spec), smoothed),
+                    tuple(K * x for x in pool_smooth_work(P, S))),
+                "finalize_batch": (
+                    lambda kept=kept, sm=smoothed: pk.finalize_batch(kept, sm, aaf, spec),
+                    lambda kept=kept, sm=smoothed: pk.finalize_batch_plain(kept, sm, aaf, spec),
+                    lambda kept=kept, sm=smoothed: max_abs(
+                        pk.finalize_batch(kept, sm, aaf, spec),
+                        pk.finalize_batch_plain(kept, sm, aaf, spec)),
+                    tuple(K * x for x in pool_finalize_work(bufH_p, w))),
+            }
+            for sname, (kern, twin, err, work) in stages.items():
+                kern()
+                k_ms = [cuda_ms(kern, 5) for _ in range(2)]
+                p_ms = cuda_ms(twin, 1)
+                b_ms, b_by = bound(*work)
+                key = sname if k_req == 16 else f"{sname}/K{k_req}"
+                per[key] = dict(ms=min(k_ms), windows=k_ms, plain_ms=p_ms, max_abs_err=err(),
+                                bound_ms=b_ms, bound_by=b_by, frames=K)
+                log(f"[17 pool fast] {sname} at the {2 * P}-line luma pass of {K} frames: "
+                    f"{min(k_ms):.4f} ms/launch ({min(k_ms) / K:.4f} a frame; windows "
+                    f"{', '.join(f'{t:.4f}' for t in k_ms)}), twin {p_ms:.3f} ms, bound "
+                    f"{b_ms:.4f} ms ({b_by}), max_abs_err {per[key]['max_abs_err']} | {card}")
+            del stages, zeros, body0, prepared, smoothed
+        threads, per_sm = pk.walk_occupancy(spec, S)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for k in (16, 14):
+            log(f"[17 pool fast] walk at K = {k}: {9 * k} blocks of {threads} threads, "
+                f"{per_sm} resident a SM on {sms} SMs -> {-(-9 * k // (per_sm * sms))} "
+                f"wave(s)")
+        if any(v["max_abs_err"] != 0.0 for v in per.values()):
+            raise AssertionError(f"a batched pool kernel disagrees with its twin: {per}")
+
+        # ms per output frame, in turns: sequential, K = 16, K = 14
+        arms = {"sequential": (False, 16), "fast K=16": (True, 16), "fast K=14": (True, 14)}
+        timed = {name: cases[name] for name in ("bob1080", "1080x40", "hd720")}
+        e2e: dict = {}
+        for rnd in (list(arms), list(arms)[::-1]):
+            for arm in rnd:
+                pc.POOL_FAST, pc.POOL_FAST_BATCH = arms[arm]
+                for wl, (c, _, call) in timed.items():
+                    frames = c.num_frames
+                    call()
+                    e2e.setdefault(f"{wl}/{arm}", []).append(cuda_ms(call, 2) / frames)
+        for k, ts in e2e.items():
+            log(f"[17 pool fast] {k}: {min(ts):.4f} ms/output frame (windows "
+                f"{', '.join(f'{t:.4f}' for t in ts)}) | {card}")
+        prof = {}
+        for arm in ("sequential", "fast K=16", "fast K=14"):
+            pc.POOL_FAST, pc.POOL_FAST_BATCH = arms[arm]
+            c, _, call = timed["bob1080"]
+            prof[arm] = profile_call(call, min(e2e[f"bob1080/{arm}"]) * c.num_frames,
+                                     f"bob1080 {arm}", card, tag="17 pool fast profile")
+    finally:
+        pc.POOL_FAST, pc.POOL_FAST_BATCH = defaults
+    details["pool_fast"] = {"launches": launches, "kernels": per, "e2e_ms_per_frame": e2e,
+                            "waves": {k: -(-9 * k // (per_sm * sms)) for k in (16, 14)},
+                            "blocks_per_sm": per_sm,
+                            "profile": {k: {kk: vv for kk, vv in v.items() if kk != "all"}
+                                        for k, v in prof.items()}}
+    return per
+
+
+def multihost_worker(rank: int, world: int, port: int, space: int,
+                     device: str = "cuda:0") -> None:
+    """One process of phase 18 (``chip_smoke.py --multihost-worker``): its
+    half of phase 4's 120 dh fields on ``device`` through
+    ``sangnom2_multihost`` over a gloo group; prints each output plane's
+    SHA-256 and the collectives the call ran."""
+    from sangnom_tpu_torch import Clip, get_format
+    from sangnom_tpu_torch.parallel import multihost as mh
+
+    mh.initialize_distributed(f"127.0.0.1:{port}", world, rank, timeout_s=300)
+    dh_planes, _ = main_path_inputs()
+    lo, hi = rank * B // world, (rank + 1) * B // world
+    clip = Clip.from_numpy([p[lo:hi] for p in dh_planes], get_format(FMT), device=device)
+    del dh_planes
+    mesh = mh.multihost_mesh(space=space, local_devices=[device] * space)
+    c0 = mh.COLLECTIVES
+    out = mh.sangnom2_multihost(clip, mesh, order=1, dh=True,
+                                space_axis="space" if space > 1 else None)
+    shas = [hashlib.sha256(p.cpu().numpy().tobytes()).hexdigest() for p in out.planes]
+    print(f"MH {rank} {lo} {hi} {mh.COLLECTIVES - c0} {' '.join(shas)}", flush=True)
+    mh.dist.destroy_process_group()
+
+
+def phase_multihost(out_dh, card, details):
+    """Phase 18: two processes with gloo, each filtering its half of phase
+    4's 120 dh fields on cuda:0 through ``sangnom2_multihost``, with
+    ``space`` 1 (K1) and 2 (K4, a 1x2 row on the one card); their joined
+    outputs must equal phase 4's ``out_dh``, with one collective a call."""
+    import socket
+
+    res = {}
+    for space in (1, 2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--multihost-worker", str(r), "2", str(port), str(space),
+                                   "cuda:0" if DEVICE == "cuda" else DEVICE],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t
+        for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"multihost worker {r} (space {space}) exited "
+                                     f"{p.returncode}:\n{so[-2000:]}\n{se[-4000:]}")
+            line = next(ln for ln in so.splitlines() if ln.startswith("MH "))
+            _, rank, lo, hi, coll, *shas = line.split()
+            lo, hi = int(lo), int(hi)
+            want = [hashlib.sha256(p[lo:hi].cpu().numpy().tobytes()).hexdigest()
+                    for p in out_dh.planes]
+            if shas != want:
+                raise AssertionError(f"multihost space {space} process {rank}: fields "
+                                     f"{lo}-{hi} != phase 4's dh output")
+            if coll != "1":
+                raise AssertionError(f"multihost space {space} process {rank}: {coll} "
+                                     f"collectives in the call")
+        res[space] = wall
+        log(f"[18 multihost] space {space}: 2 gloo processes on one card, fields "
+            f"0-{B // 2 - 1} and {B // 2}-{B - 1}, joined output equal to phase 4's dh "
+            f"output, 1 collective a call in each; {wall:.2f} s wall (2 process starts "
+            f"included) | {card}")
+    details["multihost_s"] = res
 
 
 def main_path_inputs():
@@ -1685,10 +2053,36 @@ def main() -> int:
     # profiler sessions run after every earlier phase's measurements
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="sangnom_cli_") as tmp:
-        phase_cli_hosts(Path(tmp), fmt, bob_planes, dh_planes, hd, out_bob, out_dh,
-                        min(times[("bob", "kernel")]), card, details)
-    log(f"[14 CLI and hosts] done in {time.perf_counter() - t0:.1f} s")
-    del out_dh, out_bob, hd
+        paths, want = phase_cli_hosts(Path(tmp), fmt, bob_planes, dh_planes, hd, out_bob,
+                                      out_dh, min(times[("bob", "kernel")]), card, details)
+        log(f"[14 CLI and hosts] done in {time.perf_counter() - t0:.1f} s")
+        del out_bob, hd
+
+        # 15. prewarm and --aot, in fresh processes, on phase 14's files
+        t0 = time.perf_counter()
+        phase_prewarm(Path(tmp), paths, want, N_IN, card, details)
+        log(f"[15 prewarm] done in {time.perf_counter() - t0:.1f} s")
+
+        # 16. the examples on the card
+        t0 = time.perf_counter()
+        phase_examples(Path(tmp), paths, card, details)
+        log(f"[16 examples] done in {time.perf_counter() - t0:.1f} s")
+
+    # 17. the frame-parallel pool path, each count set to 0 just before its
+    # main-path run and read just after (inside the phase)
+    t0 = time.perf_counter()
+    hd, sd = pool_inputs()
+    pool_fast_ms = phase_pool_fast(
+        fmt, Clip.from_numpy(hd, fmt, device=DEVICE, tff=True),
+        Clip.from_numpy(sd, fmt, device=DEVICE), card, details)
+    del hd, sd
+    log(f"[17 pool fast] done in {time.perf_counter() - t0:.1f} s")
+
+    # 18. multi-process frame sharding: two gloo processes on the one card
+    t0 = time.perf_counter()
+    phase_multihost(out_dh, card, details)
+    del out_dh
+    log(f"[18 multihost] done in {time.perf_counter() - t0:.1f} s")
 
     log("[details] " + json.dumps(details))
     dk_bytes, dk_ops = 0, 0
@@ -1729,6 +2123,23 @@ def main() -> int:
             "max_abs_err": max(m["max_abs_err"], pool_ms[f"{key}/chroma"]["max_abs_err"]),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,
+        })
+    fast = details["pool_fast"]["launches"]
+    for key, name, replaces, lkey in (
+        ("prepare_batch", "pool_prepare_kernel, frame-batched (POOL_FAST pass, 1 of 3)",
+         "sangnom_tpu/ops/pool_carry.py:770", "prepare"),
+        ("walk_batch", "pool_smooth_kernel over 9K maps (POOL_FAST pass, 2 of 3; K3's "
+         "walk with K frames folded in)", "sangnom_tpu/ops/pool_carry.py:557", "split3"),
+        ("finalize_batch", "pool_finalize_kernel, frame-batched (POOL_FAST pass, 3 of 3)",
+         "sangnom_tpu/ops/pool_carry.py:770", "finalize"),
+    ):
+        m = pool_fast_ms[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": POOL_SOURCE, "replaces": replaces,
+            "launches": sum(fast[wl][lkey] for wl in ("bob1080", "1080x40", "hd720")),
+            "max_abs_err": max(m["max_abs_err"], pool_fast_ms[f"{key}/K14"]["max_abs_err"]),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": None,
         })
     for key, name, replaces, lkey in (
         ("K4", "shard_full_kernel (K4)", "sangnom_tpu/parallel/fused_smooth.py:480", "full"),
@@ -1771,4 +2182,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        multihost_worker(*map(int, sys.argv[2:6]), *sys.argv[6:7])
+        sys.exit(0)
     sys.exit(main())

@@ -7,6 +7,9 @@ minimal host runtime, exposing the exact script-function surface over files:
     python -m sangnom_tpu_torch in.y4m out.y4m --legacy --order 2   # SangNom()
     python -m sangnom_tpu_torch in.y4m out.y4m --bob --device cpu
     python -m sangnom_tpu_torch script recipe.avs in.y4m out.y4m
+    python -m sangnom_tpu_torch prewarm --aot DIR --size 1920x1080 \
+        --format YUV420P8 --bob --window 8
+    python -m sangnom_tpu_torch in.y4m out.y4m --bob --window 8 --aot DIR
 
 Reads/writes YUV4MPEG2 on files or stdin/stdout ("-").  The filter runs on
 ``--device`` (default "cuda"); without a card the CLI exits 2 unless
@@ -40,7 +43,10 @@ def _add_device_options(p: argparse.ArgumentParser) -> None:
     p.add_argument("--cache-dir", default=None, metavar="DIR",
                    help="directory the CUDA kernel library is built into and "
                    "loaded from (default: sangnom_tpu_torch/_build/); a "
-                   "resident process cannot switch it after the first load")
+                   "resident process cannot switch it after the first load. "
+                   "With --aot, a library prewarmed into the --aot directory "
+                   "wins; this directory serves only when that one holds "
+                   "no library of the current sources")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -102,6 +108,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fps", default=None,
                    help="output framerate N:D (default: input stream's, "
                    "doubled under --bob)")
+    p.add_argument("--aot", default=None, metavar="DIR",
+                   help="directory prewarmed by the 'prewarm' verb: the CUDA "
+                   "kernel library loads from it with no nvcc build, and "
+                   "dispatches whose artifact is present count as served "
+                   "from it (same bits either way)")
     _add_device_options(p)
     p.add_argument("--version", action="version",
                    version=f"sangnom-tpu-torch {__version__}")
@@ -136,13 +147,18 @@ def _parse_fps(text: str) -> tuple[int, int]:
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "prewarm":
-        print("error: the prewarm verb is not ported to sangnom_tpu_torch "
-              "yet (it runs in sangnom_tpu only)", file=sys.stderr)
-        return 2
+        return _prewarm_main(argv[1:])
     if argv and argv[0] == "script":
         return _script_main(argv[1:])
 
     args = build_parser().parse_args(argv)
+    # configure UNCONDITIONALLY (None disables), before any kernel loads:
+    # the artifact directory is process-global, and an in-process host
+    # calling main() repeatedly must not leak one run's --aot directory (or
+    # its hit/miss stats) into a later run that did not ask for it
+    from sangnom_tpu_torch import aot
+
+    aot.configure(args.aot or None)
     src = sys.stdin.buffer if args.input == "-" else args.input
     dst = sys.stdout.buffer if args.output == "-" else args.output
 
@@ -186,6 +202,7 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     dt = time.perf_counter() - t0
+    _aot_note(args)
     print(
         f"{clip.num_frames} frames {clip.width}x{clip.height} -> "
         f"{out.width}x{out.height} in {dt:.2f}s "
@@ -193,6 +210,16 @@ def main(argv: list[str] | None = None) -> int:
         file=sys.stderr,
     )
     return 0
+
+
+def _aot_note(args) -> None:
+    if not getattr(args, "aot", None):
+        return
+    from sangnom_tpu_torch import aot
+
+    h, m = aot.STATS["hits"], aot.STATS["misses"]
+    print(f"aot: {h} dispatch(es) served from artifacts, {m} miss(es)",
+          file=sys.stderr)
 
 
 def _out_interlace(args, num_planes: int, props: dict) -> str:
@@ -456,11 +483,149 @@ def _run_windowed(src, dst, args, fps, t0) -> int:
         if state["close"] and state["fh"] is not None:
             state["fh"].close()
     dt = time.perf_counter() - t0
+    _aot_note(args)
     w_, h_ = state["shape"]
     print(
         f"{state['in']} frames -> {state['out']} frames {w_}x{h_} in "
         f"{dt:.2f}s ({state['in'] / dt:.1f} fps end-to-end, "
         f"window={args.window})",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _prewarm_main(argv: list[str]) -> int:
+    """``sangnom-tpu-torch prewarm``: build the CUDA kernel library into an
+    artifact directory and write one artifact for each dispatch of a
+    (format, geometry, params) combo, so later CLI runs with ``--aot DIR``
+    start with no nvcc build — the analogue of the reference's AOT-.so
+    zero-warmup property (reference src/SangNom2.cpp:312-329)."""
+    p = argparse.ArgumentParser(
+        prog="sangnom-tpu-torch prewarm",
+        description="Prewarm an artifact directory for a format/geometry/"
+        "parameter combo: the CUDA kernel library and one artifact a "
+        "dispatch. Run with the SAME filter flags you will pass to the main "
+        "CLI, plus the clip geometry; then give the main CLI --aot DIR.",
+    )
+    p.add_argument("--aot", required=True, metavar="DIR",
+                   help="artifact directory (created if missing)")
+    p.add_argument("--format", required=True, dest="fmt",
+                   help="video format name, e.g. YUV420P8, GRAY16, YUV444PS")
+    p.add_argument("--size", required=True, metavar="WxH",
+                   help="input frame geometry, e.g. 1920x1080")
+    g = p.add_mutually_exclusive_group(required=True)
+    g.add_argument("--window", type=int,
+                   help="frames per dispatch for windowed runs (--window N "
+                   "on the main CLI; --bob additionally prewarms the N+1 "
+                   "lookahead feed). The trailing partial window of a clip "
+                   "whose length is not a multiple counts a miss.")
+    g.add_argument("--frames", type=int,
+                   help="frames per dispatch for whole-clip runs (the exact "
+                   "clip length)")
+    p.add_argument("--order", type=int, default=1)
+    p.add_argument("--aa", type=int, default=48)
+    p.add_argument("--aac", type=int, default=0)
+    p.add_argument("--dh", action="store_true")
+    p.add_argument("--no-luma", dest="luma", action="store_false")
+    p.add_argument("--no-chroma", dest="chroma", action="store_false")
+    p.add_argument("--opt", type=int, default=-1)
+    p.add_argument("--numerics", choices=("c", "sse2"), default="c")
+    p.add_argument("--legacy", action="store_true")
+    p.add_argument("--bob", action="store_true")
+    p.add_argument("--tff", dest="tff", action="store_true", default=True,
+                   help="field dominance of --bob dispatches (default tff; "
+                   "must match the stream/flags at run time)")
+    p.add_argument("--bff", dest="tff", action="store_false")
+    p.add_argument("--no-warm-call", dest="warm_call", action="store_false",
+                   help="write the artifacts only; skip the call of each "
+                   "dispatch on zeros that loads the library and launches "
+                   "its kernels at this geometry")
+    _add_device_options(p)
+    args = p.parse_args(argv)
+
+    from sangnom_tpu_torch import aot
+    from sangnom_tpu_torch.api import (_LEGACY_ORDER_REMAP, SangNomError,
+                                       _validate, _validate_geometry,
+                                       _validate_numerics)
+    from sangnom_tpu_torch.core.formats import get_format
+    from sangnom_tpu_torch.ops import deint_kernel
+
+    t0 = time.perf_counter()
+    try:
+        _setup_device(args)
+        # the warm calls load the library from the directory being prewarmed
+        aot.configure(args.aot)
+        if args.legacy and args.bob:
+            raise ValueError("--legacy cannot be combined with --bob")
+        try:
+            w, h = (int(x) for x in args.size.lower().split("x"))
+        except ValueError:
+            raise ValueError(f"invalid --size {args.size!r} (want WxH)")
+        fmt = get_format(args.fmt)
+        on_cuda = torch.device(args.device).type == "cuda"
+        _validate("SangNom2", None, args.order, args.aa, args.aac, args.opt,
+                  opt1_ok=on_cuda)
+        _validate_numerics("SangNom2", args.numerics)
+        _validate_geometry("SangNom2", fmt, h)
+
+        def shapes(n):
+            return tuple(
+                ((n,) + tuple(reversed(fmt.plane_dims(w, h, i))),
+                 str(fmt.np_dtype))
+                for i in range(fmt.num_planes)
+            )
+
+        jobs = []  # (kind, n_frames, statics)
+        n0 = args.window if args.window is not None else args.frames
+        if n0 <= 0:
+            raise ValueError("--window/--frames must be positive")
+        if args.bob:
+            statics = aot.bob_statics(args.aa, args.aac, args.tff,
+                                      args.opt, args.numerics)
+            jobs.append(("bob", n0, statics))
+            if args.window is not None:
+                # windowed bob feeds window+1 frames (1-frame lookahead)
+                jobs.append(("bob", n0 + 1, statics))
+        else:
+            order = args.order
+            if args.legacy:
+                # the legacy surface: order remap, fixed aac/dh/luma/chroma
+                order = _LEGACY_ORDER_REMAP[order] if order != 1 else 1
+                statics = aot.filter_statics(order, args.aa, 0, False,
+                                             True, True, args.opt,
+                                             args.numerics)
+            else:
+                statics = aot.filter_statics(order, args.aa, args.aac,
+                                             args.dh, args.luma,
+                                             args.chroma, args.opt,
+                                             args.numerics)
+            jobs.append(("filter", n0, statics))
+
+        for kind, n, statics in jobs:
+            tj = time.perf_counter()
+            builds = deint_kernel.BUILDS
+            path = aot.save_program(args.aot, kind, fmt, shapes(n), statics,
+                                    device=args.device)
+            dt_save = time.perf_counter() - tj
+            if deint_kernel.BUILDS > builds:
+                print(f"  {deint_kernel.library_name()}: kernel library "
+                      f"built in {dt_save:.1f}s", file=sys.stderr)
+            note = ""
+            if args.warm_call:
+                note = f", warm-called {aot.warm_call(path):.1f}s"
+            print(
+                f"  {path.name}: {path.stat().st_size} bytes "
+                f"({kind}, {n} frames, saved {dt_save:.1f}s{note})",
+                file=sys.stderr,
+            )
+    except (SangNomError, ValueError, OSError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    finally:
+        aot.configure(None)
+    print(
+        f"prewarmed {len(jobs)} program(s) for {args.fmt} {w}x{h} into "
+        f"{args.aot} in {time.perf_counter() - t0:.1f}s",
         file=sys.stderr,
     )
     return 0

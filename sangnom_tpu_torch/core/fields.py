@@ -120,6 +120,13 @@ def bob(clip: Clip, aa: int = 48, aac: int = 0, luma: bool = True,
         # geometry as the explicit pipeline
         _validate("SangNom2", clip, 0, aa, aac, opt)
         _validate_numerics("SangNom2", numerics)
+        from sangnom_tpu_torch import aot
+
+        if aot.is_configured():
+            # counts a hit or a miss; the dispatch below is the same either way
+            aot.lookup("bob", clip.format.name, aot.plane_shapes(clip.planes),
+                       aot.bob_statics(aa, aac, tff_r, opt, numerics),
+                       device=clip.device)
         planes = bob_impl(clip.planes, clip.format, aa, aac, tff_r, opt,
                           numerics)
         return Clip(

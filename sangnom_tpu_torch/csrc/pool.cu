@@ -24,6 +24,16 @@
 //      fully parallel over (row, column) and leave the serial walk; on the
 //      TPU, in-kernel prepare and finalize lengthened every row step
 //      (sangnom_tpu/ops/pool_carry.py:156-162), and so they did here.
+//   The frame-parallel pool pass (the TPU package's fast path,
+//      interp_field_pool_tm_batch, which folds K frames' pools into K3's
+//      walk, sangnom_tpu/ops/pool_carry.py:770 -> _smooth_rows_pallas :528):
+//      K frames that each own a pool [9, P+1, S] (fresh zeros; rows 0 and P
+//      never written) take the same three kernels over a contiguous batch:
+//      the walk over 9K maps, one block a map (sno_pool_smooth_batch_launch),
+//      and prepare and finalize with a frame axis in their grid
+//      (sno_pool_prepare_batch_launch, sno_pool_finalize_batch_launch).
+//      A 1080 walk is 9K blocks of 480 threads on 132 SMs; the serial steps
+//      stay 539, now shared by K frames.
 //
 // What bounds them.  The walk: a 1080 pass moves 75 MB (about 22 us at
 // 3.35 TB/s) in 539 dependent row steps, so its time is the latency of one
@@ -147,15 +157,18 @@ pool_smooth_kernel(const typename Ops<T, SSE2>::acc* row0,
 }
 
 // K7 prepare: the raw maps of kept pair (t, t+1) into body row t (pool row
-// t+1), t = 0..R-1, columns 0..w-1.  kept row r is at kept + r*pitch_k.
+// t+1), t = 0..R-1, columns 0..w-1.  kept row r of frame k (blockIdx.z) is at
+// kept + k*kept_fs + r*pitch_k, its body at body + k*9*body_ms.
 template <typename T, bool SSE2>
 __global__ void pool_prepare_kernel(const T* __restrict__ kept,
                                     typename Ops<T, SSE2>::acc* __restrict__ body,
-                                    long long pitch_k, long long body_ms, int R,
-                                    int w, int S) {
+                                    long long kept_fs, long long pitch_k,
+                                    long long body_ms, int R, int w, int S) {
   using A = typename Ops<T, SSE2>::acc;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= w) return;
+  kept += blockIdx.z * kept_fs;
+  body += blockIdx.z * kMaps * body_ms;
   for (int t = blockIdx.y; t < R; t += gridDim.y) {
     const T* top = kept + t * pitch_k;
     A mp[kMaps];
@@ -167,16 +180,21 @@ __global__ void pool_prepare_kernel(const T* __restrict__ kept,
 }
 
 // K7 finalize: interp row t (t = 0..R-1) from kept pair (t, t+1) and the
-// smoothed maps in body row t, columns 0..w-1; interp is [R, w].
+// smoothed maps in body row t, columns 0..w-1; frame k's (blockIdx.z)
+// interp is [R, w] at interp + k*interp_fs.
 template <typename T, bool SSE2>
 __global__ void pool_finalize_kernel(const T* __restrict__ kept,
                                      const typename Ops<T, SSE2>::acc* __restrict__ body,
-                                     T* __restrict__ interp, long long pitch_k,
+                                     T* __restrict__ interp, long long kept_fs,
+                                     long long pitch_k, long long interp_fs,
                                      long long body_ms, int R, int w, int S,
                                      typename Ops<T, SSE2>::acc aaf) {
   using A = typename Ops<T, SSE2>::acc;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= w) return;
+  kept += blockIdx.z * kept_fs;
+  body += blockIdx.z * kMaps * body_ms;
+  interp += blockIdx.z * interp_fs;
   for (int t = blockIdx.y; t < R; t += gridDim.y) {
     const T* top = kept + t * pitch_k;
     const A* src = body + (long long)t * S + c;
@@ -190,45 +208,66 @@ __global__ void pool_finalize_kernel(const T* __restrict__ kept,
 
 constexpr int kRowThreads = 256;  // threads a block of the prepare and finalize grids
 
-dim3 row_grid(int R, int w) {
-  return dim3((w + kRowThreads - 1) / kRowThreads, R < 65535 ? R : 65535);
+// One block of kRowThreads columns a (row, frame); rows past 65535 loop.
+dim3 row_grid(int R, int w, int frames) {
+  return dim3((w + kRowThreads - 1) / kRowThreads, R < 65535 ? R : 65535, frames);
 }
 
 template <typename T, bool SSE2, int COLS>
+int smooth_smem_bytes(int S) {
+  return 2 * line_pitch(S, COLS) * static_cast<int>(sizeof(typename Ops<T, SSE2>::acc));
+}
+
+// The walk over `maps` maps, one block each (9 for a pool, 9K for a batch).
+template <typename T, bool SSE2, int COLS>
 cudaError_t smooth(const void* row0, void* body, const void* tail,
                    long long row0_ms, long long body_ms, long long tail_ms,
-                   int n, int S, int threads, cudaStream_t stream) {
+                   int maps, int n, int S, int threads, cudaStream_t stream) {
   using A = typename Ops<T, SSE2>::acc;
   auto kern = pool_smooth_kernel<T, SSE2, COLS>;
-  const int smem_bytes = 2 * line_pitch(S, COLS) * static_cast<int>(sizeof(A));
+  const int smem_bytes = smooth_smem_bytes<T, SSE2, COLS>(S);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return e;
-  kern<<<kMaps, threads, smem_bytes, stream>>>(
+  kern<<<maps, threads, smem_bytes, stream>>>(
       static_cast<const A*>(row0), static_cast<A*>(body),
       static_cast<const A*>(tail), row0_ms, body_ms, tail_ms, n, S);
   return cudaGetLastError();
 }
 
+// Resident walk blocks an SM at this launch shape.
 template <typename T, bool SSE2, int COLS>
-cudaError_t prepare(const void* kept, void* body, long long pitch_k, int P,
-                    int R, int w, int S, cudaStream_t stream) {
+cudaError_t smooth_occupancy(int S, int threads, int* blocks) {
+  auto kern = pool_smooth_kernel<T, SSE2, COLS>;
+  const int smem_bytes = smooth_smem_bytes<T, SSE2, COLS>(S);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads,
+                                                       smem_bytes);
+}
+
+template <typename T, bool SSE2, int COLS>
+cudaError_t prepare(const void* kept, void* body, long long kept_fs,
+                    long long pitch_k, int frames, int P, int R, int w, int S,
+                    cudaStream_t stream) {
   using A = typename Ops<T, SSE2>::acc;
-  pool_prepare_kernel<T, SSE2><<<row_grid(R, w), kRowThreads, 0, stream>>>(
-      static_cast<const T*>(kept), static_cast<A*>(body), pitch_k,
+  pool_prepare_kernel<T, SSE2><<<row_grid(R, w, frames), kRowThreads, 0, stream>>>(
+      static_cast<const T*>(kept), static_cast<A*>(body), kept_fs, pitch_k,
       (long long)(P - 1) * S, R, w, S);
   return cudaGetLastError();
 }
 
 template <typename T, bool SSE2, int COLS>
 cudaError_t finalize_rows(const void* kept, const void* body, void* interp,
-                          long long pitch_k, int P, int R, int w, int S,
-                          double aaf, cudaStream_t stream) {
+                          long long kept_fs, long long pitch_k,
+                          long long interp_fs, int frames, int P, int R, int w,
+                          int S, double aaf, cudaStream_t stream) {
   using A = typename Ops<T, SSE2>::acc;
-  pool_finalize_kernel<T, SSE2><<<row_grid(R, w), kRowThreads, 0, stream>>>(
+  pool_finalize_kernel<T, SSE2><<<row_grid(R, w, frames), kRowThreads, 0, stream>>>(
       static_cast<const T*>(kept), static_cast<const A*>(body),
-      static_cast<T*>(interp), pitch_k, (long long)(P - 1) * S, R, w, S,
-      static_cast<A>(aaf));
+      static_cast<T*>(interp), kept_fs, pitch_k, interp_fs,
+      (long long)(P - 1) * S, R, w, S, static_cast<A>(aaf));
   return cudaGetLastError();
 }
 
@@ -259,26 +298,33 @@ cudaError_t finalize_rows(const void* kept, const void* body, void* interp,
 
 cudaError_t smooth_any(int dtype, int sse2, int cols, const void* row0,
                        void* body, const void* tail, long long row0_ms,
-                       long long body_ms, long long tail_ms, int n, int S,
-                       int threads, cudaStream_t stream) {
-  SNO_DISPATCH(smooth, row0, body, tail, row0_ms, body_ms, tail_ms, n, S,
-               threads, stream);
+                       long long body_ms, long long tail_ms, int maps, int n,
+                       int S, int threads, cudaStream_t stream) {
+  SNO_DISPATCH(smooth, row0, body, tail, row0_ms, body_ms, tail_ms, maps, n,
+               S, threads, stream);
+}
+
+cudaError_t smooth_occupancy_any(int dtype, int sse2, int cols, int S,
+                                 int threads, int* blocks) {
+  SNO_DISPATCH(smooth_occupancy, S, threads, blocks);
 }
 
 cudaError_t prepare_any(int dtype, int sse2, const void* kept, void* body,
-                        long long pitch_k, int P, int R, int w, int S,
-                        cudaStream_t stream) {
+                        long long kept_fs, long long pitch_k, int frames,
+                        int P, int R, int w, int S, cudaStream_t stream) {
   const int cols = 1;
-  SNO_DISPATCH(prepare, kept, body, pitch_k, P, R, w, S, stream);
+  SNO_DISPATCH(prepare, kept, body, kept_fs, pitch_k, frames, P, R, w, S,
+               stream);
 }
 
 cudaError_t finalize_any(int dtype, int sse2, const void* kept,
-                         const void* body, void* interp, long long pitch_k,
+                         const void* body, void* interp, long long kept_fs,
+                         long long pitch_k, long long interp_fs, int frames,
                          int P, int R, int w, int S, double aaf,
                          cudaStream_t stream) {
   const int cols = 1;
-  SNO_DISPATCH(finalize_rows, kept, body, interp, pitch_k, P, R, w, S, aaf,
-               stream);
+  SNO_DISPATCH(finalize_rows, kept, body, interp, kept_fs, pitch_k, interp_fs,
+               frames, P, R, w, S, aaf, stream);
 }
 
 #undef SNO_DISPATCH
@@ -296,7 +342,7 @@ int sno_pool_smooth_launch(int dtype, int sse2, int cols, void* pool, int P,
   const long long ms = (long long)(P + 1) * S;
   return static_cast<int>(smooth_any(
       dtype, dtype == 2 ? 0 : sse2, cols, base, base + elem * S,
-      base + elem * (size_t)P * S, ms, ms, ms, P - 1, S, threads,
+      base + elem * (size_t)P * S, ms, ms, ms, sno::kMaps, P - 1, S, threads,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -309,8 +355,28 @@ int sno_pool_smooth_split3_launch(int dtype, int sse2, int cols,
                                   void* stream) {
   return static_cast<int>(smooth_any(
       dtype, dtype == 2 ? 0 : sse2, cols, row0, body, tail, S,
-      (long long)(P - 1) * S, S, P - 1, S, threads,
+      (long long)(P - 1) * S, S, sno::kMaps, P - 1, S, threads,
       static_cast<cudaStream_t>(stream)));
+}
+
+// The batched walk: the same smoothing over `maps` maps (9 a frame) of a
+// contiguous batch, row0 [maps, S], body [maps, P-1, S], tail [maps, S].
+int sno_pool_smooth_batch_launch(int dtype, int sse2, int cols,
+                                 const void* row0, void* body,
+                                 const void* tail, int maps, int P, int S,
+                                 int threads, void* stream) {
+  if (maps <= 0 || maps % sno::kMaps) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(smooth_any(
+      dtype, dtype == 2 ? 0 : sse2, cols, row0, body, tail, S,
+      (long long)(P - 1) * S, S, maps, P - 1, S, threads,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// Resident blocks an SM of the walk at stride S and `threads` threads.
+int sno_pool_smooth_occupancy(int dtype, int sse2, int cols, int S,
+                              int threads, int* blocks) {
+  return static_cast<int>(smooth_occupancy_any(dtype, dtype == 2 ? 0 : sse2,
+                                               cols, S, threads, blocks));
 }
 
 // K7 prepare: kept rows r = 0..R (row r at kept + r*pitch_k elements, w
@@ -320,8 +386,20 @@ int sno_pool_prepare_launch(int dtype, int sse2, const void* kept, void* body,
                             long long pitch_k, int P, int R, int w, int S,
                             void* stream) {
   return static_cast<int>(prepare_any(dtype, dtype == 2 ? 0 : sse2, kept,
-                                      body, pitch_k, P, R, w, S,
+                                      body, 0, pitch_k, 1, P, R, w, S,
                                       static_cast<cudaStream_t>(stream)));
+}
+
+// The batched prepare: frame k's kept rows at kept + k*kept_fs (row pitch
+// pitch_k) into its body, [frames, 9, P-1, S] contiguous.
+int sno_pool_prepare_batch_launch(int dtype, int sse2, const void* kept,
+                                  void* body, long long kept_fs,
+                                  long long pitch_k, int frames, int P, int R,
+                                  int w, int S, void* stream) {
+  if (frames <= 0 || frames > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(prepare_any(dtype, dtype == 2 ? 0 : sse2, kept,
+                                      body, kept_fs, pitch_k, frames, P, R, w,
+                                      S, static_cast<cudaStream_t>(stream)));
 }
 
 // K7 finalize: the same kept rows and the smoothed body -> interp [R, w].
@@ -330,7 +408,22 @@ int sno_pool_finalize_launch(int dtype, int sse2, const void* kept,
                              int P, int R, int w, int S, double aaf,
                              void* stream) {
   return static_cast<int>(finalize_any(dtype, dtype == 2 ? 0 : sse2, kept,
-                                       body, interp, pitch_k, P, R, w, S, aaf,
+                                       body, interp, 0, pitch_k, 0, 1, P, R, w,
+                                       S, aaf, static_cast<cudaStream_t>(stream)));
+}
+
+// The batched finalize: frame k's interpolated rows [R, w] at
+// interp + k*interp_fs, from its kept rows and body as in the prepare.
+int sno_pool_finalize_batch_launch(int dtype, int sse2, const void* kept,
+                                   const void* body, void* interp,
+                                   long long kept_fs, long long pitch_k,
+                                   long long interp_fs, int frames, int P,
+                                   int R, int w, int S, double aaf,
+                                   void* stream) {
+  if (frames <= 0 || frames > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(finalize_any(dtype, dtype == 2 ? 0 : sse2, kept,
+                                       body, interp, kept_fs, pitch_k,
+                                       interp_fs, frames, P, R, w, S, aaf,
                                        static_cast<cudaStream_t>(stream)));
 }
 

@@ -10,16 +10,24 @@ version instead; on a CUDA tensor it launches the kernel or raises.
 The kernel library (this kernel and the pool kernels of ``ops/pool_kernel``)
 is compiled with nvcc for sm_90a at first use, one nvcc per source in
 ``csrc/``, all started together, into ``sangnom_tpu_torch/_build/`` or the
-directory given to `set_build_dir` (rebuilt when a source or header is
-newer), and bound with ctypes; one build and load runs per process, whatever
-the number of threads that ask for the library first; launches from several
-threads are serialized (`LAUNCH_LOCK`).  ``LAUNCHES``
-counts kernel launches, so a run can show that it went through the kernel.
+directory given to `set_build_dir`, and bound with ctypes.  A built library
+is keyed by `source_hash` (the sources, the nvcc flags and the target
+arch), never by file times, so a fresh checkout of the same sources reuses
+it and any edit rebuilds it.  When `sangnom_tpu_torch.aot` is configured
+and its directory holds the library of this `source_hash`, the library is
+loaded from there and nvcc never runs: an ``--aot DIR`` run wins over
+``--cache-dir`` (`set_build_dir`), which serves only when DIR holds no
+matching library.  One build and load runs per process, whatever the number
+of threads that ask for the library first; launches from several threads
+are serialized (`LAUNCH_LOCK`).  ``LAUNCHES`` counts kernel launches, so a
+run can show that it went through the kernel; ``BUILDS`` counts nvcc builds
+and ``LIB_PATH`` names the library file that was loaded.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -48,6 +56,10 @@ NVCC_FLAGS = [
 
 # Kernel launches since import (or since the caller last reset it).
 LAUNCHES = 0
+# nvcc builds of the kernel library run by this process.
+BUILDS = 0
+# The library file this process loaded (None before the first load).
+LIB_PATH: Path | None = None
 
 _lib: ctypes.CDLL | None = None
 _max_smem: dict[int, int] = {}
@@ -96,25 +108,61 @@ def set_build_dir(path: str | os.PathLike) -> None:
         _BUILD_DIR, _LIB = new, new / _LIB.name
 
 
+def source_hash() -> str:
+    """The key of a kernel library: a hash of every file in ``csrc/`` (name
+    and bytes) and of the nvcc flags, which hold the target arch."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(_SRC_DIR.iterdir()):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return h.hexdigest()[:16]
+
+
+def library_name() -> str:
+    """The file name of this `source_hash`'s library in an artifact
+    directory (`sangnom_tpu_torch.aot`)."""
+    return f"libsangnom_cuda-{source_hash()}.so"
+
+
+def _key_file(lib: Path) -> Path:
+    return lib.with_name(lib.name + ".key")
+
+
 def build(verbose: bool = False) -> float:
-    """Compile the kernel library if it is missing or older than a source.
-    Returns the seconds spent compiling (0.0 when it was up to date).
-    ``verbose`` adds ptxas's register and shared-memory report to stdout."""
+    """Compile the kernel library into the build directory unless the one
+    there was built from this `source_hash`.  Returns the seconds spent
+    compiling (0.0 when it was up to date).  ``verbose`` rebuilds and adds
+    ptxas's register and shared-memory report to stdout."""
     with _BUILD_LOCK:
         return _build(verbose)
 
 
 def _build(verbose: bool) -> float:
-    sources = sorted(_SRC_DIR.glob("*.cu"))
-    newest = max(p.stat().st_mtime for p in _SRC_DIR.iterdir())
-    if _LIB.exists() and _LIB.stat().st_mtime >= newest and not verbose:
+    key = source_hash()
+    kf = _key_file(_LIB)
+    if (not verbose and _LIB.exists() and kf.exists()
+            and kf.read_text() == key):
         return 0.0
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    dt = compile_library(_LIB, verbose)
+    tmp = kf.with_name(f"{kf.name}.{os.getpid()}.tmp")
+    tmp.write_text(key)
+    os.replace(tmp, kf)
+    return dt
+
+
+def compile_library(lib: Path, verbose: bool = False) -> float:
+    """Run nvcc: build the kernel library of ``csrc/`` into the file ``lib``
+    (its directory created), one nvcc per source in parallel, then a link;
+    the file appears atomically.  Returns the seconds spent."""
+    global BUILDS
+    lib = Path(lib)
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    sources = sorted(_SRC_DIR.glob("*.cu"))
     nvcc = _nvcc()
     tag = f"{os.getpid()}.tmp"
-    objs = [_BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
-    tmp = _LIB.with_name(f"{_LIB.name}.{tag}")
+    objs = [lib.parent / f"{src.stem}.{tag}.o" for src in sources]
+    tmp = lib.with_name(f"{lib.name}.{tag}")
     ptxas = ["-Xptxas", "-v"] if verbose else []
+    BUILDS += 1
     t0 = time.perf_counter()
     try:
         cmds = [[nvcc, *NVCC_FLAGS, *ptxas, "-c", str(src), "-o", str(obj)]
@@ -135,7 +183,7 @@ def _build(verbose: bool) -> float:
             raise RuntimeError(
                 f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                 f"{proc.stderr}")
-        os.replace(tmp, _LIB)  # atomic: a concurrent build never sees a partial file
+        os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
     finally:
         for path in (*objs, tmp):
             path.unlink(missing_ok=True)
@@ -143,14 +191,19 @@ def _build(verbose: bool) -> float:
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
+    global _lib, LIB_PATH
     if _lib is not None:
         return _lib
     with _BUILD_LOCK:
         if _lib is not None:  # another thread loaded it while we waited
             return _lib
-        build()
-        lib = ctypes.CDLL(str(_LIB))
+        from sangnom_tpu_torch import aot
+
+        path = aot.library_path()
+        if path is None:
+            build()
+            path = _LIB
+        lib = ctypes.CDLL(str(path))
         lib.sno_max_smem.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.sno_max_smem.restype = ctypes.c_int
         lib.sno_error_string.argtypes = [ctypes.c_int]
@@ -168,7 +221,7 @@ def _load() -> ctypes.CDLL:
             p,  # stream
         ]
         lib.sno_deint_launch.restype = ctypes.c_int
-        _lib = lib
+        _lib, LIB_PATH = lib, Path(path)
     return _lib
 
 

@@ -31,6 +31,13 @@ copy.  Plane passes:
 
 The first three are `_pool_pass` with their own smoothing.
 
+The frame-parallel path (``POOL_FAST``, off by default as in the TPU
+package): where `_frames_independent` proves that no frame can observe the
+pool a previous frame left, each frame starts from a fresh pool, and chunks
+of ``POOL_FAST_BATCH`` frames take each plane pass together
+(`interp_field_pool_batch`: ``pool_kernel.interp_batch``, three launches a
+chunk and plane whatever the chunk's frame count).
+
 The split carry is ``(row0 [9, S], body [9, P-1, S], tail [9, S])``: pool
 row 0, rows 1..P-1 and row P in three tensors.
 """
@@ -66,6 +73,13 @@ from sangnom_tpu_torch.utils.profiling import stage_scope
 # POOL_SPLIT3; with both off the route is K3.
 POOL_SPLIT3 = False
 POOL_FUSED = True
+# The frame-parallel path (`_sangnom2_pool_batched`): off by default, as
+# in the TPU package (sangnom_tpu/ops/pool_carry.py:134-146), where it lost
+# to the sequential walk at every chunk size and one hardware run recorded a
+# bit-identity failure that was never localized.  Engages only on the kernel
+# route (opt != 0), with no caller pool, where `_frames_independent` holds.
+POOL_FAST = False
+POOL_FAST_BATCH = 16
 
 
 def init_pool(luma_width: int, luma_h_out: int, fmt: VideoFormat,
@@ -210,6 +224,125 @@ def _assemble_into(out: torch.Tensor, kept: torch.Tensor, interp: torch.Tensor,
         out[0] = kept[0]
 
 
+def _frames_independent(luma_width: int, luma_h: int, fmt: VideoFormat,
+                        dh: bool, luma: bool) -> bool:
+    """True when every frame's pool-compat output is provably independent of
+    the carried pool, so frames may be processed IN PARALLEL bit-exactly
+    (the TPU package's proof, sangnom_tpu/ops/pool_carry.py:715-744).
+
+    Proof: the first plane processed in a frame is luma (``dh`` processes
+    every plane; otherwise ``luma=True`` is required).  Its prepare
+    overwrites pool rows 1..P-1 over cols 0..w-1; its smoothing pass reads
+    exactly raw rows 1..P, the row-0 seed, and — through the stride-clamped
+    7-tap box — cols 0..S-1.  When ``w == S`` (stride-aligned luma width)
+    and the luma kept field spans the full buffer height (even ``h`` or
+    ``dh``), every cell that pass can read is either freshly prepared (rows
+    1..P-1) or one of the pool's two NEVER-written rows 0/P, which are zero
+    for the life of any pool this module makes (`init_pool` zeroes them; no
+    pass writes them; reference src/SangNom2.cpp:79 vs 129-133).  The luma
+    pass is therefore a pure function of the frame, the chroma passes read
+    only this frame's luma/chroma residue, and frame k's output and final
+    pool never depend on frame k-1.  The carried-state cases (``w !=
+    stride``: pad-column carry; ``luma=False`` without dh: U inherits the
+    last frame's V) stay on the sequential loop."""
+    return (
+        (dh or luma)
+        and buffer_stride_elems(luma_width, fmt.component_size) == luma_width
+        and (dh or luma_h % 2 == 0)
+    )
+
+
+def _frame_index(ks: list[int], n: int, device):
+    """An index of frames ``ks`` of a batch of ``n``: a slice where they are
+    evenly spaced (all of them, or the bob's alternate frames), else an
+    index tensor."""
+    if len(ks) == n:
+        return slice(None)
+    step = ks[1] - ks[0] if len(ks) > 1 else 1
+    if ks == list(range(ks[0], ks[-1] + 1, step)):
+        return slice(ks[0], ks[-1] + 1, step)
+    return torch.tensor(ks, device=device)
+
+
+def _offset_groups(offsets: list[int], device):
+    """(offset, frame index) for each offset 0/1 that some frame has."""
+    return [(o, _frame_index(ks, len(offsets), device))
+            for o in (0, 1) if (ks := [k for k, off in enumerate(offsets) if off == o])]
+
+
+def _gather_kept_batch(p: torch.Tensor, offsets: list[int], dh: bool) -> torch.Tensor:
+    """Kept-field rows of K frames' plane [K, h, w] -> [K, bufH_p, w]: a
+    view for dh or one offset, else the per-frame rows gathered."""
+    if dh:
+        return p
+    groups = _offset_groups(offsets, p.device)
+    if len(groups) == 1:
+        return p[:, groups[0][0]::2]
+    kept = p.new_empty((p.shape[0], p.shape[1] // 2, p.shape[2]))
+    for o, f in groups:
+        kept[f] = p[f, o::2]
+    return kept
+
+
+def _assemble_batch(out: torch.Tensor, kept: torch.Tensor, interp: torch.Tensor,
+                    offsets: list[int]) -> None:
+    """`_assemble_into` for K frames: ``out`` [K, 2*bufH_p, w], frame k
+    woven at ``offsets[k]``."""
+    for o, f in _offset_groups(offsets, out.device):
+        if o == 0:
+            out[f, 0::2] = kept[f]
+            out[f, 1:-1:2] = interp[f]
+            out[f, -1] = kept[f, -1]
+        else:
+            out[f, 1::2] = kept[f]
+            out[f, 2::2] = interp[f]
+            out[f, 0] = kept[f, 0]
+
+
+def interp_field_pool_batch(kept: torch.Tensor, carry, aaf,
+                            spec: KernelSpec) -> torch.Tensor:
+    """One plane pass of K frames, each on its own pool, through
+    ``pool_kernel.interp_batch`` (the TPU package's
+    ``interp_field_pool_tm_batch``, in the port's frame-major layout).
+    ``kept`` [K, bufH_p, w]; ``carry`` the batched split carry (row0 [K, 9,
+    S], body [K, 9, P-1, S], tail [K, 9, S]), updated in place.  A degenerate
+    plane (kept field < 2 rows) only smooths, as the sequential pass does.
+    Returns the interpolated rows [K, bufH_p-1, w]."""
+    row0, body, tail = carry
+    K, bufH_p, w = kept.shape
+    if bufH_p < 2:
+        pool_kernel.smooth_batch_(row0, body, tail, spec)
+        return kept.new_zeros((K, 0, w))
+    return pool_kernel.interp_batch(kept, row0, body, tail, aaf, spec)
+
+
+def _sangnom2_pool_batched(planes, outs, passes, offsets: list[int], dh: bool,
+                           spec: KernelSpec, P: int, S: int) -> torch.Tensor:
+    """The frame-parallel path (the `_frames_independent` fast path):
+    each frame starts from a fresh zero pool — provably what the sequential
+    history would hand it — and chunks of `POOL_FAST_BATCH` frames take
+    each plane pass together.  Writes the processed planes into ``outs``;
+    returns the final pool, the last frame's [9, P+1, S] (equal to the
+    sequential final pool, since no state crosses frames here)."""
+    N = planes[0].shape[0]
+    device = planes[0].device
+    K = max(1, POOL_FAST_BATCH)
+    last = None
+    for s in range(0, N, K):
+        e = min(N, s + K)
+        zeros = torch.zeros((e - s, 9, S), dtype=spec.acc_dtype, device=device)
+        carry = (zeros, torch.zeros((e - s, 9, P - 1, S), dtype=spec.acc_dtype,
+                                    device=device), zeros)
+        offs = offsets[s:e]
+        for i, aaf in passes:
+            kept = _gather_kept_batch(planes[i][s:e], offs, dh)
+            with stage_scope("pool batch pass"):
+                interp = interp_field_pool_batch(kept, carry, aaf, spec)
+            _assemble_batch(outs[i][s:e], kept, interp, offs)
+        last = (zeros[-1], carry[1][-1], zeros[-1])
+    return _pool_join(last)
+
+
 def sangnom2_pool_impl(
     planes,
     parity,
@@ -229,7 +362,14 @@ def sangnom2_pool_impl(
 
     ``parity``: host bool array, read only for order=0.  ``pool0``: the
     carried pool [9, P+1, S] to start from, UPDATED IN PLACE (None: a fresh
-    one).  Returns (out_planes, final_pool)."""
+    one).  Returns (out_planes, final_pool).
+
+    With ``POOL_FAST`` set, the kernel route (opt != 0), no ``pool0`` and
+    `_frames_independent`, frames run in chunks through the frame-parallel
+    path (`_sangnom2_pool_batched`); everything else takes frames in
+    order.  A caller's pool0 always takes the sequential loop: the path
+    recreates each frame's pool from zeros, which a pool0 made elsewhere
+    need not equal (the CLI's windowed stream carries one)."""
     device = planes[0].device
     spec = KernelSpec.from_format(fmt, sse2=(numerics == "sse2"))
     N, h0, w0 = planes[0].shape
@@ -246,6 +386,10 @@ def sangnom2_pool_impl(
                 f"{pool.device} does not fit the clip (needs {want} "
                 f"{spec.acc_dtype} on {device})")
     plane_pass, split = _plane_pass(opt, device)
+    fast = (POOL_FAST and opt != 0 and pool0 is None
+            and _frames_independent(w0, h0, fmt, dh, luma))
+    if fast:
+        plane_pass = interp_field_pool_batch
     log_dispatch(
         fmt=fmt.name, backend=plane_pass.__name__, acc_dtype=spec.acc_dtype,
         order=order, aa=aa, aac=aac, dh=dh, luma=luma, chroma=chroma, opt=opt,
@@ -270,6 +414,10 @@ def sangnom2_pool_impl(
             outs.append(p.new_empty((n, 2 * h if dh else h, w)))
             passes.append((i, aaf_as_pixel(aafs[i], fmt)))
 
+    if fast:
+        P, S = want[1] - 1, want[2]
+        final = _sangnom2_pool_batched(planes, outs, passes, offsets, dh, spec, P, S)
+        return tuple(outs), final
     carry = _pool_split(pool) if split else pool
     for f in range(N):
         off = offsets[f]

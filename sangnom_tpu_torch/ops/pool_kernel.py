@@ -15,6 +15,13 @@ kernels of ``sangnom_tpu/ops/pool_carry.py``:
                      stream: ``prepare_pool_`` (the kept pairs' raw maps into
                      the body), the K6 walk, ``finalize_pool`` (the
                      interpolated rows from the smoothed body).
+  ``interp_batch``   the frame-parallel pass (the TPU package's fast path,
+                     ``interp_field_pool_tm_batch``, which folds K frames'
+                     pools into K3's walk): K frames, each with its own
+                     pool, through the same three kernels as one launch each
+                     over the batch: ``prepare_batch_``, ``smooth_batch_``
+                     (the walk over 9K maps, one block a map) and
+                     ``finalize_batch``.
 
 Each wrapper checks shapes, dtypes and layout, then on a CPU tensor runs
 its plain PyTorch twin (the ``*_plain`` functions) and on a CUDA tensor
@@ -22,7 +29,7 @@ launches its kernel or raises.  Kept rows may be strided (a field read in
 place from its frame); columns must be contiguous.  The kernels are built
 with the field kernel's library (``deint_kernel.build``).  ``LAUNCHES``
 counts launches per kernel; a K7 pass counts one "prepare", one "split3"
-and one "finalize".
+and one "finalize", and so does a batched pass, whatever its frame count.
 """
 
 from __future__ import annotations
@@ -66,8 +73,20 @@ def _lib() -> ctypes.CDLL:
         lib.sno_pool_finalize_launch.argtypes = [
             i, i, p, p, p, ll, i, i, i, i,  # dtype sse2 kept body interp pitch P R w S
             ctypes.c_double, p]  # aaf stream
+        lib.sno_pool_smooth_batch_launch.argtypes = [
+            i, i, i, p, p, p, i, i, i, i, p]  # ... row0 body tail maps P S threads stream
+        lib.sno_pool_smooth_occupancy.argtypes = [
+            i, i, i, i, i, ctypes.POINTER(i)]  # dtype sse2 cols S threads blocks
+        lib.sno_pool_prepare_batch_launch.argtypes = [
+            i, i, p, p, ll, ll, i, i, i, i, i, p]  # ... kept_fs pitch frames P R w S stream
+        lib.sno_pool_finalize_batch_launch.argtypes = [
+            i, i, p, p, p, ll, ll, ll, i, i, i, i, i,  # ... kept_fs pitch interp_fs frames P R w S
+            ctypes.c_double, p]  # aaf stream
         for fn in (lib.sno_pool_smooth_launch, lib.sno_pool_smooth_split3_launch,
-                   lib.sno_pool_prepare_launch, lib.sno_pool_finalize_launch):
+                   lib.sno_pool_prepare_launch, lib.sno_pool_finalize_launch,
+                   lib.sno_pool_smooth_batch_launch, lib.sno_pool_smooth_occupancy,
+                   lib.sno_pool_prepare_batch_launch,
+                   lib.sno_pool_finalize_batch_launch):
             fn.restype = ctypes.c_int
         _bound = True
     return lib
@@ -285,3 +304,169 @@ def interp_fused(kept: torch.Tensor, row0: torch.Tensor, body: torch.Tensor,
     prepare_pool_(kept, body, spec)
     smooth_split3_(row0, body, tail, spec)
     return finalize_pool(kept, body, aaf, spec)
+
+
+# --- the frame-parallel pass: K frames, each with its own pool ------------
+
+def _check_batch(name: str, spec: KernelSpec, row0, body, tail) -> tuple[int, int, int]:
+    """(K, P, S) of a valid batched split carry: row0 [K, 9, S], body
+    [K, 9, P-1, S], tail [K, 9, S], contiguous; or ValueError."""
+    if body.dim() != 4 or body.shape[1] != _MAPS or body.shape[0] < 1:
+        raise ValueError(f"{name}: body must be [K, 9, P-1, S], got {tuple(body.shape)}")
+    K, _, Pm1, S = body.shape
+    for t, what in ((row0, "row0"), (tail, "tail")):
+        if tuple(t.shape) != (K, _MAPS, S):
+            raise ValueError(f"{name}: {what} must be [{K}, 9, {S}], got {tuple(t.shape)}")
+    _check_acc(name, spec, body, row0, tail)
+    return K, Pm1 + 1, S
+
+
+def _check_kept_batch(name: str, spec: KernelSpec, kept: torch.Tensor,
+                      body: torch.Tensor) -> None:
+    """Kept rows [K, bufH_p, w] of a batch on ``body`` [K, 9, P-1, S]: each
+    frame's rows as `_check_kept` takes them."""
+    if kept.dim() != 3 or kept.shape[0] != body.shape[0]:
+        raise ValueError(f"{name}: kept must be [K, bufH_p, w] with K = "
+                         f"{body.shape[0]}, got {tuple(kept.shape)}")
+    _check_kept(name, spec, kept[0], body.shape[2] + 1, body.shape[3], body.device)
+
+
+def smooth_batch_plain_(row0, body, tail, spec: KernelSpec) -> torch.Tensor:
+    """Plain twin of `smooth_batch_`: the K3 twin over the 9K maps."""
+    K, _, Pm1, S = body.shape
+    pool = torch.cat([row0[:, :, None], body, tail[:, :, None]], dim=2)
+    body.copy_(smooth_pool_plain_(pool.reshape(K * _MAPS, Pm1 + 2, S), spec)
+               .reshape(K, _MAPS, Pm1 + 2, S)[:, :, 1:-1])
+    return body
+
+
+def smooth_batch_(row0: torch.Tensor, body: torch.Tensor, tail: torch.Tensor,
+                  spec: KernelSpec) -> torch.Tensor:
+    """The pool smoothing of K frames' pools at once: frame k's carry is
+    (row0[k], body[k], tail[k]) as `smooth_split3_` takes it; ``body`` is
+    smoothed in place.  On CUDA tensors one launch of the walk over 9K maps.
+    Returns ``body``."""
+    name = "pool batch walk"
+    K, P, S = _check_batch(name, spec, row0, body, tail)
+    if body.device.type == "cpu":
+        return smooth_batch_plain_(row0, body, tail, spec)
+    if P < 2:
+        return body
+    lib = _lib()
+    code, sse2, cols, threads, stream = _common(spec, S, body.device)
+    with torch.cuda.device(body.device), dk.LAUNCH_LOCK:
+        err = lib.sno_pool_smooth_batch_launch(
+            code, sse2, cols, row0.data_ptr(), body.data_ptr(), tail.data_ptr(),
+            K * _MAPS, P, S, threads, stream)
+    dk._check(lib, err, f"{name} launch")
+    LAUNCHES["split3"] += 1
+    return body
+
+
+def walk_occupancy(spec: KernelSpec, S: int, device="cuda") -> tuple[int, int]:
+    """(threads a block, resident blocks an SM) of the pool walk at stride
+    ``S`` on a card: a batched walk of 9K blocks runs in
+    ceil(9K / (blocks x SMs)) waves."""
+    lib = _lib()
+    code, sse2, cols, threads, _ = _common(spec, S, torch.device(device))
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        dk._check(lib, lib.sno_pool_smooth_occupancy(code, sse2, cols, S, threads,
+                                                     ctypes.byref(blocks)),
+                  "pool walk occupancy query")
+    return threads, blocks.value
+
+
+def prepare_batch_plain_(kept: torch.Tensor, body: torch.Tensor,
+                         spec: KernelSpec) -> torch.Tensor:
+    """Plain twin of `prepare_batch_` (`prepare_pool_plain_` with a frame
+    axis: the taps are last-axis functions)."""
+    _, bufH_p, w = kept.shape
+    k = kept.to(spec.acc_dtype)
+    taps, preds = pair_taps(k[:, :-1], k[:, 1:], spec)
+    body[:, :, : bufH_p - 1, :w] = torch.stack(error_maps_list(taps, preds), dim=1)
+    return body
+
+
+def prepare_batch_(kept: torch.Tensor, body: torch.Tensor, spec: KernelSpec) -> torch.Tensor:
+    """`prepare_pool_` for K frames: kept rows [K, bufH_p, w] (frames and
+    rows may be strided, columns contiguous) into ``body`` [K, 9, P-1, S],
+    in place.  Returns ``body``."""
+    name = "pool batch prepare"
+    if body.dim() != 4 or body.shape[1] != _MAPS:
+        raise ValueError(f"{name}: body must be [K, 9, P-1, S], got {tuple(body.shape)}")
+    _check_acc(name, spec, body)
+    _check_kept_batch(name, spec, kept, body)
+    if kept.device.type == "cpu":
+        return prepare_batch_plain_(kept, body, spec)
+    K, bufH_p, w = kept.shape
+    P, S = body.shape[2] + 1, body.shape[3]
+    lib = _lib()
+    code, sse2, _, _, stream = _common(spec, S, kept.device)
+    with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
+        err = lib.sno_pool_prepare_batch_launch(
+            code, sse2, kept.data_ptr(), body.data_ptr(), kept.stride(0),
+            kept.stride(1), K, P, bufH_p - 1, w, S, stream)
+    dk._check(lib, err, f"{name} launch")
+    LAUNCHES["prepare"] += 1
+    return body
+
+
+def finalize_batch_plain(kept: torch.Tensor, body: torch.Tensor, aaf,
+                         spec: KernelSpec) -> torch.Tensor:
+    """Plain twin of `finalize_batch`."""
+    _, bufH_p, w = kept.shape
+    k = kept.to(spec.acc_dtype)
+    taps, preds = pair_taps(k[:, :-1], k[:, 1:], spec)
+    bufs = body[:, :, : bufH_p - 1, :w].transpose(0, 1)  # [9, K, R, w]
+    return finalize_select_from_taps(taps, preds, bufs, aaf, spec).to(kept.dtype)
+
+
+def finalize_batch(kept: torch.Tensor, body: torch.Tensor, aaf,
+                   spec: KernelSpec) -> torch.Tensor:
+    """`finalize_pool` for K frames: the interpolated rows [K, R, w] from
+    kept rows [K, bufH_p, w] and the smoothed ``body`` [K, 9, P-1, S]."""
+    name = "pool batch finalize"
+    if body.dim() != 4 or body.shape[1] != _MAPS:
+        raise ValueError(f"{name}: body must be [K, 9, P-1, S], got {tuple(body.shape)}")
+    _check_acc(name, spec, body)
+    _check_kept_batch(name, spec, kept, body)
+    if kept.device.type == "cpu":
+        return finalize_batch_plain(kept, body, aaf, spec)
+    K, bufH_p, w = kept.shape
+    P, S = body.shape[2] + 1, body.shape[3]
+    out = torch.empty((K, bufH_p - 1, w), dtype=kept.dtype, device=kept.device)
+    lib = _lib()
+    code, sse2, _, _, stream = _common(spec, S, kept.device)
+    with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
+        err = lib.sno_pool_finalize_batch_launch(
+            code, sse2, kept.data_ptr(), body.data_ptr(), out.data_ptr(),
+            kept.stride(0), kept.stride(1), out.stride(0), K, P, bufH_p - 1, w,
+            S, float(aaf), stream)
+    dk._check(lib, err, f"{name} launch")
+    LAUNCHES["finalize"] += 1
+    return out
+
+
+def interp_batch_plain(kept, row0, body, tail, aaf, spec: KernelSpec):
+    """Plain twin of `interp_batch`: the three plain stages in sequence."""
+    prepare_batch_plain_(kept, body, spec)
+    smooth_batch_plain_(row0, body, tail, spec)
+    return finalize_batch_plain(kept, body, aaf, spec)
+
+
+def interp_batch(kept: torch.Tensor, row0: torch.Tensor, body: torch.Tensor,
+                 tail: torch.Tensor, aaf, spec: KernelSpec) -> torch.Tensor:
+    """One plane pass of K frames, each on its own pool: ``kept`` [K,
+    bufH_p, w] -> interpolated rows [K, bufH_p-1, w]; the batched carry
+    (row0 [K, 9, S], body [K, 9, P-1, S], tail [K, 9, S]) is prepared and
+    smoothed in place.  On CUDA tensors three launches on the current
+    stream, whatever K: `prepare_batch_`, `smooth_batch_`, `finalize_batch`."""
+    name = "pool batch pass"
+    _check_batch(name, spec, row0, body, tail)
+    _check_kept_batch(name, spec, kept, body)
+    if kept.device.type == "cpu":
+        return interp_batch_plain(kept, row0, body, tail, aaf, spec)
+    prepare_batch_(kept, body, spec)
+    smooth_batch_(row0, body, tail, spec)
+    return finalize_batch(kept, body, aaf, spec)

@@ -273,6 +273,7 @@ def sangnom2_op(
             luma, chroma, numerics=numerics, opt=opt,
         )
         return clip.with_planes(planes)
+    _maybe_aot(clip, order, aa, aac, dh, luma, chroma, opt, numerics)
     if order == 0:
         planes = _order0_static_split(
             clip, clip.parity_array(), aa, aac, dh, luma, chroma, opt,
@@ -284,6 +285,23 @@ def sangnom2_op(
             opt, numerics=numerics,
         )
     return clip.with_planes(planes)
+
+
+def _maybe_aot(clip: Clip, order, aa, aac, dh, luma, chroma, opt,
+               numerics) -> bool:
+    """Count this filter dispatch as served from a prewarmed artifact (a hit)
+    or not (a miss) when ``sangnom_tpu_torch.aot`` is configured; the
+    dispatch runs the same code either way, so the output bits are the same.
+    Called only on the path the artifacts describe (pool_compat stays off
+    it, as in the TPU package).  Returns whether it was a hit."""
+    from sangnom_tpu_torch import aot
+
+    if not aot.is_configured():
+        return False
+    return aot.lookup(
+        "filter", clip.format.name, aot.plane_shapes(clip.planes),
+        aot.filter_statics(order, aa, aac, dh, luma, chroma, opt, numerics),
+        device=clip.device)
 
 
 def sangnom2_pool_stream(

@@ -26,16 +26,23 @@ from sangnom_tpu_torch.parallel.width_sharded import interpolate_field_width_sha
 
 
 class Mesh:
-    """A named ``[data, space]`` grid of torch devices."""
+    """A named ``[data, space]`` grid of torch devices.  ``processes``: the
+    rank owning each slot, for a mesh over several processes
+    (`parallel.multihost.multihost_mesh`); None for one process."""
 
-    def __init__(self, devices, axis_names: Sequence[str] = ("data", "space")):
+    def __init__(self, devices, axis_names: Sequence[str] = ("data", "space"),
+                 processes=None):
         grid = np.empty(np.shape(devices), dtype=object)
         for idx, d in np.ndenumerate(np.asarray(devices, dtype=object)):
             grid[idx] = torch.device(d)
         if grid.ndim != len(axis_names):
             raise ValueError(f"mesh of shape {grid.shape} for axes {tuple(axis_names)}")
+        if processes is not None and np.shape(processes) != grid.shape:
+            raise ValueError(f"processes of shape {np.shape(processes)} for a "
+                             f"mesh of shape {grid.shape}")
         self.devices = grid
         self.axis_names = tuple(axis_names)
+        self.processes = None if processes is None else np.asarray(processes)
 
     @property
     def shape(self) -> dict:

@@ -201,11 +201,6 @@ def test_cli_device_defaults_to_cuda(inputs, tmp_path, capsys, monkeypatch):
         assert not dst.exists()
 
 
-def test_cli_prewarm_not_ported(capsys):
-    assert tcli.main(["prewarm", "--aot", "x", "--format", "YUV420P8"]) == 2
-    assert "not ported" in capsys.readouterr().err
-
-
 @pytest.fixture
 def fresh_kernel_library(monkeypatch):
     """The kernel library's module state, restored after the test; nothing
