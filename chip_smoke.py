@@ -36,7 +36,12 @@ finalize kernels) against the sequential K7 route, its launch formula and
 its ms per frame at 16 and 14 frames a chunk.  Phase 18: two gloo
 processes on the card through ``parallel.sangnom2_multihost`` against
 phase 4's dh output (the script re-runs itself as the workers, with
-``--multihost-worker``).  Each phase
+``--multihost-worker``).  Phase 19: width sharding across devices
+(``parallel.cross_device``) with four slots that all name the card: K4 and
+the K5 route on phase 4's inputs, bit-equal to its outputs, launches, halo
+exchanges and PEER_BYTES against their formulas, timed at R 4/16/32/64 in
+turns with the one-device cluster route; real meshes of two and four cards
+when the machine has them.  Each phase
 prints one line or more; any
 failure raises, so the script exits nonzero and never prints the final
 ``"ok"`` line.  Imports nothing of JAX.
@@ -799,14 +804,18 @@ def chunked_finalize_work(N: int, bufH: int, S: int, elem: int = 1):
 
 
 def _timed(fn, plain, reps: int) -> dict:
-    """Best ms of ``fn`` over two windows of ``reps`` calls, the plain
-    twin's ms (one call) and their max_abs_err."""
+    """Best ms of ``fn`` over two windows of ``reps`` calls; the plain twin
+    timed by CUDA events over the one call that gives the reference, and
+    their max_abs_err."""
     got = fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     want = plain()
+    end.record()
     torch.cuda.synchronize()
     err = max_abs(got, want)
     del got, want
-    return {"ms": min(cuda_ms(fn, reps) for _ in range(2)), "plain_ms": cuda_ms(plain, 1),
+    return {"ms": min(cuda_ms(fn, reps) for _ in range(2)), "plain_ms": start.elapsed_time(end),
             "max_abs_err": err}
 
 
@@ -855,16 +864,29 @@ def phase_shard_timing(clip_dh, woven, card, details):
         log(f"[11 shard timing] {k}: {min(ts):.3f} ms/call -> {120 / min(ts) * 1e3:.1f} "
             f"output frames/s (windows {', '.join(f'{t:.3f}' for t in ts)}) | {card}")
     details["shard_e2e_ms"] = e2e
-    profiles = {}
-    for wl, arm in (("dh", "K4/space4"), ("bob", "K4/space4"), ("dh", "K5/space4")):
-        profiles[f"{wl}/{arm}"] = profile_call(
-            fn(arm, wl), min(e2e[f"{wl}/{arm}"]), f"{wl}/{arm}", card, "11 shard profile")
-    details["shard_profiles"] = profiles
     # The K5 route's per-pass kernels are its own; every other kernel of its
     # call (padding, the U+V batch, the trim) is the sharded call's, as in
     # the K4 call: no torch kernel over the plane belongs to the route.
     own = ("shard_prepare_kernel", "shard_smooth_kernel", "shard_finalize_kernel",
            "shard_full_kernel")
+    # a call's launches of those kernels (two plane passes, one each), which
+    # a complete trace holds: the profiler at times drops a U+V pass's
+    # launches, and a trace that did is taken again (at most three times)
+    route = {"K4/space4": {"shard_full_kernel": 2},
+             "K5/space4": {o: 2 for o in own[:3]}}
+    profiles = {}
+    for wl, arm in (("dh", "K4/space4"), ("bob", "K4/space4"), ("dh", "K5/space4")):
+        for _ in range(3):
+            prof = profile_call(fn(arm, wl), min(e2e[f"{wl}/{arm}"]), f"{wl}/{arm}", card,
+                                "11 shard profile")
+            traced = {o: sum(n for k, n, _ in prof.get("all", ()) if o in k)
+                      for o in route[arm]}
+            if "top" not in prof or traced == route[arm]:
+                break
+            log(f"[11 shard profile] {wl}/{arm}: the trace holds {traced} of the call's "
+                f"{route[arm]} launches; profiling it again")
+        profiles[f"{wl}/{arm}"] = prof
+    details["shard_profiles"] = profiles
     if "top" in profiles["dh/K5/space4"]:
         others = {}
         for key in ("dh/K4/space4", "dh/K5/space4"):
@@ -1805,6 +1827,211 @@ def phase_multihost(out_dh, card, details):
     details["multihost_s"] = res
 
 
+def cross_expected(clip, dh: bool, n: int, smooth: str, chunk_rows=None):
+    """(launches, halo exchanges, PEER_BYTES) of one u8 call through the
+    route across ``n`` slots (parallel.cross_device), per plane pass (luma,
+    fused U+V): K4 ceil((bufH-1) / R) one-shard launches a slot and a carry
+    exchange between chunks; the K5 route a prepare, as many K5 chunks and a
+    finalize a slot; the scan a row exchange a row.  Each exchange moves
+    2(n-1) halos; the scatter and the gather move slots 1..n-1's own
+    columns, the gather the woven rows (K4, K5) or the interpolated ones."""
+    from sangnom_tpu_torch.parallel import cross_device as cd
+    from sangnom_tpu_torch.parallel import shard_kernel as sk
+
+    launches = {k: 0 for k in sk.LAUNCHES}
+    exch = {"kept": 0, "carry": 0, "row": 0}
+    peer = {k: 0 for k in cd.PEER_BYTES}
+    for k, (bufH, W) in enumerate(_plane_passes(clip, dh, n)):
+        N = clip.num_frames * (2 if k else 1)  # U and V in one pass
+        steps = bufH - 1
+        exch["kept"] += 1
+        peer["scatter"] += (n - 1) * N * bufH * W
+        if smooth == "scan":
+            exch["row"] += steps
+            peer["kept"] += 2 * (n - 1) * 3 * N * bufH
+            peer["row"] += steps * 2 * (n - 1) * 3 * 9 * N * 4
+            peer["gather"] += (n - 1) * N * steps * W
+            continue
+        R, halo = (cd.k4_geometry if smooth == "fused" else cd.k5_geometry)(W, steps, chunk_rows)
+        chunks = -(-steps // R)
+        if smooth == "fused":
+            launches["full"] += n * chunks
+        else:
+            launches["smooth"] += n * chunks
+            launches["prepare"] += n
+            launches["finalize"] += n
+        exch["carry"] += chunks - 1
+        peer["kept"] += 2 * (n - 1) * halo * N * bufH
+        peer["carry"] += (chunks - 1) * 2 * (n - 1) * halo * 9 * N * 4
+        peer["gather"] += (n - 1) * N * 2 * bufH * W
+    return launches, exch, peer
+
+
+SLOT_SWEEP = (4, 16, 32, 64)  # chunk_rows of phase 19's sweep
+
+
+def phase_cross_device(clip_dh, woven, out_dh, out_bob, card, details):
+    """Phase 19: the route across devices (``parallel.cross_device``) with
+    four slots that all name the card, on phase 4's 1080 dh call and woven
+    bob: K4 and the K5 route, each output bit-equal to phase 4's, launches,
+    halo exchanges and PEER_BYTES equal to their formulas; the scan arm on
+    4-frame prefixes; each call timed at R in SLOT_SWEEP in turns with the
+    one-device cluster route; the 1080 dh luma and U+V passes against their
+    plain steps.  With two cards or more, sangnom2_sharded on real meshes
+    of them too.  Returns {"launches": {arm: counts}, "pass": {arm: ms}}."""
+    from sangnom_tpu_torch.core.geometry import aaf_as_pixel, scaled_aa_thresholds
+    from sangnom_tpu_torch.ops.primitives import KernelSpec
+    from sangnom_tpu_torch.parallel import cross_device as cd
+    from sangnom_tpu_torch.parallel import default_mesh, sangnom2_sharded
+    from sangnom_tpu_torch.parallel import shard_kernel as sk
+    from sangnom_tpu_torch.parallel import width_sharded as ws
+    from sangnom_tpu_torch.parallel.sharding import _sharded_pad_width
+
+    n = 4
+    slots = [DEVICE] * n
+    calls = {"dh": (clip_dh, dict(order=1, dh=True), out_dh),
+             "bob": (woven, dict(order=0), out_bob)}
+
+    def same(outs, what, prefix=None):
+        for name, (_, _, ref) in calls.items():
+            for i, (g, r) in enumerate(zip(outs[name].planes, ref.planes)):
+                r = r if prefix is None else r[:prefix]
+                if not torch.equal(g, r):
+                    raise AssertionError(f"{what} {name} plane {i} != phase 4, max_abs "
+                                         f"{max_abs(g, r)}")
+
+    res: dict = {"launches": {}, "pass": {}}
+    for arm, smooth in (("K4", "fused"), ("K5", "chunked")):
+        torch.cuda.synchronize()
+        sk.reset_launches()
+        ws.reset_exchanges()
+        cd.reset_peer_bytes()
+        outs = {name: cd.sangnom2_across(c, slots, smooth=smooth, **kw)
+                for name, (c, kw, _) in calls.items()}
+        torch.cuda.synchronize()
+        got = (dict(sk.LAUNCHES), dict(ws.HALO_EXCHANGES), dict(cd.PEER_BYTES))
+        want = [{k: 0 for k in d} for d in got]
+        for c, kw, _ in calls.values():
+            for total, part in zip(want, cross_expected(c, kw.get("dh", False), n, smooth)):
+                for k, v in part.items():
+                    total[k] += v
+        if list(got) != want:
+            raise AssertionError(f"{arm} across {n} slots: (launches, exchanges, peer "
+                                 f"bytes) {got}, formula {want}")
+        same(outs, f"{arm} across {n} slots")
+        del outs
+        res["launches"][arm] = got[0]
+        details[f"cross_{arm}_1x{n}"] = {"launches": got[0], "exchanges": got[1],
+                                         "peer_bytes": got[2]}
+        R = sk.SLOT_ROWS if arm == "K4" else sk.SLOT_ROWS_K5
+        log(f"[19 cross-device] {arm} through {n} slots of {DEVICE} (default R {R}): dh "
+            f"and bob bit-equal to phase 4; launches {got[0]}, halo "
+            f"exchanges {got[1]}, PEER_BYTES {got[2]} ({sum(got[2].values()) / 2e6:.1f} "
+            "MB a call), each equal to its formula")
+    ws.reset_exchanges()
+    cd.reset_peer_bytes()
+    outs = {name: cd.sangnom2_across(c[0:4], slots, smooth="scan", **kw)
+            for name, (c, kw, _) in calls.items()}
+    torch.cuda.synchronize()
+    same(outs, "scan across slots", prefix=4)
+    want = [{k: 0 for k in d} for d in (ws.HALO_EXCHANGES, cd.PEER_BYTES)]
+    for c, kw, _ in calls.values():
+        for total, part in zip(want, cross_expected(c[0:4], kw.get("dh", False), n,
+                                                    "scan")[1:]):
+            for k, v in part.items():
+                total[k] += v
+    if [dict(ws.HALO_EXCHANGES), dict(cd.PEER_BYTES)] != want:
+        raise AssertionError(f"scan across slots: {ws.HALO_EXCHANGES} {cd.PEER_BYTES}, "
+                             f"formula {want}")
+    log(f"[19 cross-device] scan arm through {n} slots, 4-frame prefixes of dh and bob: "
+        f"bit-equal to phase 4; exchanges {dict(ws.HALO_EXCHANGES)}, PEER_BYTES "
+        f"{dict(cd.PEER_BYTES)}")
+    del outs
+
+    # each call at R in SLOT_SWEEP, in turns with the one-device cluster route
+    mesh = default_mesh(1, n, devices=slots)
+    arms: dict = {}
+    for arm, smooth in (("K4", "fused"), ("K5", "chunked")):
+        arms[f"{arm}/cluster"] = (smooth, None)
+        for R in SLOT_SWEEP:
+            arms[f"{arm}/slots/R{R}"] = (smooth, R)
+    sweep: dict = {}
+    for wl, (c, kw, _) in calls.items():
+        fns = {}
+        for key, (smooth, R) in arms.items():
+            if R is None:
+                fns[key] = lambda c=c, kw=kw, s=smooth: sangnom2_sharded(
+                    c, mesh, space_axis="space", smooth=s, **kw)
+            else:
+                fns[key] = lambda c=c, kw=kw, s=smooth, R=R: cd.sangnom2_across(
+                    c, slots, chunk_rows=R, smooth=s, **kw)
+        for f in fns.values():
+            f()  # warm-up
+        for rnd in (list(arms), list(arms)[::-1]):
+            for key in rnd:
+                sweep.setdefault(f"{wl}/{key}", []).append(cuda_ms(fns[key], 2))
+        torch.cuda.empty_cache()
+    for key, ts in sweep.items():
+        log(f"[19 cross-device timing] {key}: {min(ts):.3f} ms/call (windows "
+            f"{', '.join(f'{t:.3f}' for t in ts)}) | {card}")
+    details["cross_sweep_ms"] = sweep
+    for arm in ("K4", "K5"):
+        best = {R: min(sweep[f"dh/{arm}/slots/R{R}"]) + min(sweep[f"bob/{arm}/slots/R{R}"])
+                for R in SLOT_SWEEP}
+        log(f"[19 cross-device timing] {arm} through slots, dh + bob ms by R: "
+            f"{ {R: round(t, 3) for R, t in best.items()} }; fastest R {min(best, key=best.get)} "
+            f"(default {sk.SLOT_ROWS if arm == 'K4' else sk.SLOT_ROWS_K5}) | {card}")
+
+    # the 1080 dh passes alone: the route against its plain steps
+    fmt = clip_dh.format
+    spec = KernelSpec.from_format(fmt)
+    aafs = scaled_aa_thresholds(48, 0, fmt)
+    luma = clip_dh.planes[0].contiguous()
+    S = luma.shape[2]
+    _, hc, wc = clip_dh.planes[1].shape
+    Sc = _sharded_pad_width(wc, hc, S, n, fmt, True)
+    uv = torch.cat([clip_dh.planes[1], clip_dh.planes[2]])
+    uv = torch.cat([uv, uv[..., -1:].expand(-1, -1, Sc - wc)], dim=2).contiguous()
+    passes = {"luma": (luma, aaf_as_pixel(aafs[0], fmt), S),
+              "U+V": (uv, aaf_as_pixel(aafs[1], fmt), wc)}
+    for arm, route in (("K4", cd.fused_pass), ("K5", cd.chunked_pass)):
+        for name, (kept, aaf, w) in passes.items():
+            Nk, bH, Sk = kept.shape
+            m = _timed(lambda: route(kept, 0, aaf, spec, slots, w),
+                            lambda: route(kept, 0, aaf, spec, slots, w, plain=True), 3)
+            m["bound_ms"], m["bound_by"] = bound(*k4_work(Nk, bH, Sk))
+            res["pass"][f"{arm}/{name}"] = m
+            log(f"[19 cross-device timing] {arm} through {n} slots per {name} pass ({Nk} "
+                f"fields x {bH} rows x {Sk}, default R): {m['ms']:.4f} ms, plain "
+                f"steps {m['plain_ms']:.3f} ms, bound {m['bound_ms']:.4f} ms "
+                f"({m['bound_by']}), max_abs_err {m['max_abs_err']} | {card}")
+    del luma, uv
+    torch.cuda.empty_cache()
+    details["cross_pass_ms"] = res["pass"]
+
+    # real meshes of several cards
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"[19 cross-device] cross-device peer copies not run: {count} device")
+        return res
+    for space in (2, 4):
+        if space > count:
+            break
+        peers = [torch.cuda.can_device_access_peer(0, i) for i in range(1, space)]
+        cd.reset_peer_bytes()
+        t0 = time.perf_counter()
+        outs = {name: sangnom2_sharded(c, default_mesh(1, space), space_axis="space", **kw)
+                for name, (c, kw, _) in calls.items()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        same(outs, f"a 1x{space} mesh of {space} cards")
+        del outs
+        log(f"[19 cross-device] default_mesh(1, {space}) over {space} cards (peer access "
+            f"from cuda:0 {peers}): dh and bob bit-equal to phase 4; PEER_BYTES "
+            f"{dict(cd.PEER_BYTES)}; {wall:.3f} s wall for both calls | {card}")
+    return res
+
+
 def main_path_inputs():
     """The bench's 1080 inputs, seed 7: 120 dh fields first, then 60
     interlaced frames."""
@@ -2032,7 +2259,7 @@ def main() -> int:
     shard_launches = phase_sharded_main_path(clip_dh, woven, out_dh, out_bob, details)
     log(f"[10 sharded main path] done in {time.perf_counter() - t0:.1f} s")
     shard_ms = phase_shard_timing(clip_dh, woven, card, details)
-    del clip_dh, clip_bob, woven
+    del clip_bob  # clip_dh, woven and phase 4's outputs stay for phase 19
 
     # 12. the probe kernels vs their plain versions, 13. the cost-model path
     t0 = time.perf_counter()
@@ -2056,7 +2283,7 @@ def main() -> int:
         paths, want = phase_cli_hosts(Path(tmp), fmt, bob_planes, dh_planes, hd, out_bob,
                                       out_dh, min(times[("bob", "kernel")]), card, details)
         log(f"[14 CLI and hosts] done in {time.perf_counter() - t0:.1f} s")
-        del out_bob, hd
+        del hd
 
         # 15. prewarm and --aot, in fresh processes, on phase 14's files
         t0 = time.perf_counter()
@@ -2081,8 +2308,14 @@ def main() -> int:
     # 18. multi-process frame sharding: two gloo processes on the one card
     t0 = time.perf_counter()
     phase_multihost(out_dh, card, details)
-    del out_dh
     log(f"[18 multihost] done in {time.perf_counter() - t0:.1f} s")
+
+    # 19. width sharding across devices: four slots of the card through the
+    # route's per-slot launches, copies and gathers, against phase 4
+    t0 = time.perf_counter()
+    cross = phase_cross_device(clip_dh, woven, out_dh, out_bob, card, details)
+    del clip_dh, woven, out_dh, out_bob
+    log(f"[19 cross-device] done in {time.perf_counter() - t0:.1f} s")
 
     log("[details] " + json.dumps(details))
     dk_bytes, dk_ops = 0, 0
@@ -2154,6 +2387,23 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SHARD_SOURCE, "replaces": replaces,
             "launches": shard_launches["K4" if key == "K4" else "K5"][lkey],
             "max_abs_err": max(m["max_abs_err"], shard_ms[f"{key}/U+V"]["max_abs_err"]),
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
+        })
+    for arm, name, lkey in (
+        ("K4", "shard_full_kernel (K4), one-shard chunk launches a slot (width sharding "
+         "across devices; timed: the 1080 dh luma pass through 4 slots)", "full"),
+        ("K5", "shard_prepare_kernel, shard_smooth_kernel (K5) one-shard chunks, "
+         "shard_finalize_kernel, a slot (width sharding across devices; timed: the 1080 "
+         "dh luma pass through 4 slots)", "smooth"),
+    ):
+        m = cross["pass"][f"{arm}/luma"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SHARD_SOURCE,
+            "replaces": ("sangnom_tpu/parallel/fused_smooth.py:480" if arm == "K4"
+                         else "sangnom_tpu/parallel/fused_smooth.py:116"),
+            "launches": cross["launches"][arm][lkey],
+            "max_abs_err": max(m["max_abs_err"], cross["pass"][f"{arm}/U+V"]["max_abs_err"]),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,
         })

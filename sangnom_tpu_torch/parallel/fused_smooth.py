@@ -71,15 +71,17 @@ def _smooth_chunk_plain(smx, rawx, out, base: int, steps: int, HK: int,
                         spec: KernelSpec) -> None:
     """The plain K5 step: smooths rows base..base+steps-1 of every shard from
     the exchanged carry ``smx`` [n, C, W_ext] and raw maps ``rawx``
-    [n, C, bufH+1, W_ext] into ``out`` [n, C, bufH-1, W_loc]."""
+    [n, C, bufH+1, W_ext] into ``out`` [n, C, bufH-1, W_loc].  ``HK`` 0: no
+    halo, the box clamps at the shard's own edges (one shard, or a slot of
+    the route across devices, parallel.cross_device)."""
     W_loc = out.shape[-1]
     sm = smx
     for s in range(base, base + steps):
         line = sm + rawx[:, :, 1 + s] + rawx[:, :, 2 + s]  # vertical 3-sum
         sm = smooth_writeback(_hbox7(line), spec)  # taps clamp at W_ext
-        # re-replicate the computed row's halo on the global boundary shards
-        sm[0, :, :HK] = sm[0, :, HK: HK + 1]
-        sm[-1, :, HK + W_loc:] = sm[-1, :, HK + W_loc - 1: HK + W_loc]
+        if HK:  # re-replicate the computed row's halo on the global boundary shards
+            sm[0, :, :HK] = sm[0, :, HK: HK + 1]
+            sm[-1, :, HK + W_loc:] = sm[-1, :, HK + W_loc - 1: HK + W_loc]
         out[:, :, s] = sm[..., HK: HK + W_loc]
 
 
@@ -229,7 +231,9 @@ def _full_chunk_plain(keptx, smx, out, offsets, base: int, steps: int,
     box, writeback and the priority select; the central columns go to
     ``out`` (woven rows per ``offsets``, or plain interpolated rows when it
     is None).  ``keptx`` [n, N, bufH, W_ext] (storage dtype), ``smx``
-    [n, N, 9, W_ext].  Returns the last smoothed row's central columns."""
+    [n, N, 9, W_ext]; ``HALO`` 0: no halo, the taps and the box clamp at the
+    shard's own edges (one shard, or a slot of parallel.cross_device).
+    Returns the last smoothed row's central columns."""
     acc = spec.acc_dtype
     n, N, bufH, W_ext = keptx.shape
     W_loc = W_ext - 2 * HALO
@@ -269,9 +273,9 @@ def _full_chunk_plain(keptx, smx, out, offsets, base: int, steps: int,
         else:
             raw_next = torch.zeros_like(raw)
         line = (sm + raw) + raw_next
-        # the box's clamp at the global 0/S edges
-        line[0, ..., :HALO] = line[0, ..., HALO: HALO + 1]
-        line[-1, ..., HALO + W_loc:] = line[-1, ..., HALO + W_loc - 1: HALO + W_loc]
+        if HALO:  # the box's clamp at the global 0/S edges
+            line[0, ..., :HALO] = line[0, ..., HALO: HALO + 1]
+            line[-1, ..., HALO + W_loc:] = line[-1, ..., HALO + W_loc - 1: HALO + W_loc]
         sm = smooth_writeback(_hbox7(line), spec)
         res = finalize_select_from_taps(taps, preds, sm.permute(2, 0, 1, 3), aaf, spec)
         res = res.to(keptx.dtype)

@@ -6,9 +6,11 @@ scratch, zero shared state, one frame each.  The filter is a stateless
 per-frame transform, so frame sharding across processes (one per host, or
 several on one host) is pure data parallelism: frames never cross a
 process.  The only traffic is one all-gather of the processes' frame counts
-a call (`COLLECTIVES` counts it); width-sharding halos stay inside a
-process, because `multihost_mesh` keeps every ``space`` row of the mesh on
-one process's devices.
+a call (`COLLECTIVES` counts it).  Width-sharding halos stay inside a
+process: `multihost_mesh` keeps every ``space`` row of the mesh on one
+process's devices.  A row may span several of them (``local_devices=
+["cuda:0", "cuda:1"]``, ``space=2``: the route across devices,
+parallel.cross_device) but never two processes.
 
 Usage (one process per host or card, every process runs the same code)::
 

@@ -22,6 +22,9 @@ Two routes, never chosen silently:
   chunk    a mesh row of more shards than a cluster holds: the same kernel,
            one launch per chunk of R rows, the carried row passing through
            device memory between launches (ceil((bufH-1) / R) launches).
+  slot     ``full_chunk`` / ``smooth_chunk``: the chunk route's kernels over
+           one shard (no halo in the launch: the caller's slab carries it),
+           one launch a call.
 """
 
 from __future__ import annotations
@@ -42,6 +45,12 @@ MAX_CLUSTER = 8
 # Rows between halo exchanges when the caller gives none: the fastest R of
 # the 1x4 1080 passes on an H100 (tools/shard_ab.py; PERF.md section 6).
 CLUSTER_ROWS = 4
+# Rows between halo exchanges of the route across devices when the caller
+# gives none (parallel.cross_device): its K4 chunks and its K5 chunks, each
+# the fastest R of chip_smoke.py phase 19's sweep of the 1080 dh and bob
+# calls on an H100 (R 4/16/32/64; PERF.md section 5).
+SLOT_ROWS = 32
+SLOT_ROWS_K5 = 16
 
 _MAPS = 9
 _RING_ROWS = 5  # K4's kept-row ring slots (csrc/shard.cu kRing)
@@ -112,15 +121,17 @@ class Plan(NamedTuple):
 
 
 def full_plan(n_space: int, W_loc: int, bufH: int, elem: int, limit: int,
-              chunk_rows: int | None = None) -> Plan:
+              chunk_rows: int | None = None, cluster: bool | None = None) -> Plan:
     """K4's plan for a pass of ``bufH`` kept rows, shards of ``W_loc``
     columns, ``elem``-byte samples, under a block's shared-memory
-    ``limit``: the first of the routes double, single, global that fits."""
+    ``limit``: the first of the routes double, single, global that fits.
+    ``cluster`` None: the cluster route up to ``MAX_CLUSTER`` shards."""
     n_steps = bufH - 1
     R, H = cluster_rows(n_space, W_loc, n_steps, chunk_rows)
     W_c = block_width(n_space, W_loc, H)
     cols, threads = shard_shape(W_c)
-    cluster = n_space <= MAX_CLUSTER
+    if cluster is None:
+        cluster = n_space <= MAX_CLUSTER
     pitch_b = _round_up(W_c + cols + 8, 4)
     pitch_r = _round_up(W_c + cols + 8, 16)
     pitch_p = _round_up(threads * cols, 16)
@@ -138,14 +149,15 @@ def full_plan(n_space: int, W_loc: int, bufH: int, elem: int, limit: int,
 
 
 def smooth_plan(n_space: int, W_loc: int, bufH: int, limit: int,
-                chunk_rows: int | None = None) -> Plan:
+                chunk_rows: int | None = None, cluster: bool | None = None) -> Plan:
     """K5's plan for a pass of ``bufH`` kept rows (bufH-1 smoothed rows):
     a double-buffered line row and the cluster exchange's buffer."""
     n_steps = bufH - 1
     R, H = cluster_rows(n_space, W_loc, n_steps, chunk_rows)
     W_c = block_width(n_space, W_loc, H)
     cols, threads = shard_shape(W_c)
-    cluster = n_space <= MAX_CLUSTER
+    if cluster is None:
+        cluster = n_space <= MAX_CLUSTER
     pitch = _round_up(W_c + cols + 8, 4)
     smem = 2 * pitch * 4 + (2 * 2 * H * 4 if cluster else 0)
     if smem > limit:
@@ -208,6 +220,37 @@ def _codes(spec: KernelSpec, device: torch.device):
     return code, sse2, torch.cuda.current_stream(device).cuda_stream
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _full_scratch(plan: Plan, blocks: int, spec: KernelSpec, kept: torch.Tensor):
+    """K4's global-route scratch (gbuf, grp), or (None, None) on the shared
+    routes."""
+    if plan.route != "global":
+        return None, None
+    return (torch.empty((blocks, _MAPS, plan.pitch_b), dtype=spec.acc_dtype,
+                        device=kept.device),
+            torch.empty((blocks, _MAPS, plan.pitch_p), dtype=kept.dtype, device=kept.device))
+
+
+def _launch_full(lib, plan: Plan, spec: KernelSpec, kept, out, weave_args, scratch, gin,
+                 gout, n_space: int, w_glob: int, lo: int, hi: int, aaf, name: str) -> None:
+    """One K4 launch over steps lo..hi-1 (the caller holds the device and
+    LAUNCH_LOCK)."""
+    N, bufH, S = kept.shape
+    weave, static_offset, offs = weave_args
+    code, sse2, stream = _codes(spec, kept.device)
+    err = lib.sno_shard_full_launch(
+        code, sse2, plan.cols, kept.data_ptr(), out.data_ptr(), _ptr(offs),
+        _ptr(scratch[0]), _ptr(scratch[1]), _ptr(gin), _ptr(gout), N, n_space, bufH, S,
+        S // n_space, plan.H, w_glob, plan.R, lo, hi, weave, static_offset,
+        int(plan.route == "double"), plan.pitch_b, plan.pitch_r, plan.pitch_p,
+        int(plan.cluster), float(aaf), plan.threads, plan.smem_bytes, stream)
+    check_launch(lib, err, f"{name} launch", n_space)
+    LAUNCHES["full"] += 1
+
+
 def full_pass(kept: torch.Tensor, offsets, aaf, spec: KernelSpec, n_space: int,
               w_glob: int, chunk_rows: int | None = None) -> torch.Tensor:
     """K4 over a plane pass: ``kept`` [N, bufH, S] (storage dtype, contiguous,
@@ -220,42 +263,73 @@ def full_pass(kept: torch.Tensor, offsets, aaf, spec: KernelSpec, n_space: int,
     if kept.dtype != dk._storage_dtype(spec):
         raise ValueError(f"{name}: dtype {kept.dtype} does not match the kernel spec {spec}")
     _check(name, kept)
-    weave, static_offset, offs = _weave_args(offsets, kept.device)
-    out = torch.empty((N, 2 * bufH if weave else bufH - 1, S), dtype=kept.dtype,
+    weave_args = _weave_args(offsets, kept.device)
+    out = torch.empty((N, 2 * bufH if weave_args[0] else bufH - 1, S), dtype=kept.dtype,
                       device=kept.device)
     lib = _lib()
     plan = full_plan(n_space, W_loc, bufH, kept.element_size(), dk._max_smem_bytes(lib, kept.device),
                      chunk_rows)
-    blocks = N * n_space
-    gbuf = grp = None
-    if plan.route == "global":
-        gbuf = torch.empty((blocks, _MAPS, plan.pitch_b), dtype=spec.acc_dtype,
-                           device=kept.device)
-        grp = torch.empty((blocks, _MAPS, plan.pitch_p), dtype=kept.dtype,
-                          device=kept.device)
+    scratch = _full_scratch(plan, N * n_space, spec, kept)
     carry = [None, None]  # the chunk route's carried row, [N, 9, S] a launch
     if not plan.cluster:
         carry = [torch.empty((N, _MAPS, S), dtype=spec.acc_dtype, device=kept.device)
                  for _ in range(2)]
     spans = [(1, bufH)] if plan.cluster else [
         (lo, min(lo + plan.R, bufH)) for lo in range(1, bufH, plan.R)]
-    code, sse2, stream = _codes(spec, kept.device)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
         for k, (lo, hi) in enumerate(spans):
-            err = lib.sno_shard_full_launch(
-                code, sse2, plan.cols, kept.data_ptr(), out.data_ptr(), ptr(offs),
-                ptr(gbuf), ptr(grp), ptr(carry[(k + 1) & 1]), ptr(carry[k & 1]), N,
-                n_space, bufH, S, W_loc, plan.H, w_glob, plan.R, lo, hi, weave,
-                static_offset, int(plan.route == "double"), plan.pitch_b, plan.pitch_r,
-                plan.pitch_p, int(plan.cluster), float(aaf), plan.threads,
-                plan.smem_bytes, stream)
-            check_launch(lib, err, f"{name} launch", n_space)
-            LAUNCHES["full"] += 1
+            _launch_full(lib, plan, spec, kept, out, weave_args, scratch,
+                         carry[(k + 1) & 1], carry[k & 1], n_space, w_glob, lo, hi, aaf, name)
     return out
+
+
+def full_chunk(kept: torch.Tensor, out: torch.Tensor, offsets, gin: torch.Tensor,
+               gout: torch.Tensor, lo: int, hi: int, aaf, spec: KernelSpec,
+               w_glob: int) -> None:
+    """K4 over steps lo..hi-1 of ONE shard, the chunk route's launch with
+    the span and the carried rows in the caller's hands: ``kept`` [N, bufH,
+    W] (storage dtype, contiguous; taps clamp at its columns 0 and W-1) ->
+    rows of ``out``, the woven [N, 2*bufH, W] (``offsets`` 0, 1 or a
+    per-field [N] tensor) or with ``offsets`` None the interpolated [N,
+    bufH-1, W].  ``gin`` / ``gout`` [N, 9, W] (accumulator dtype): the
+    smoothed row lo-1, read when lo > 1, and row hi-1, written when hi <
+    bufH.  Raw maps are zero at columns >= ``w_glob`` (0: all of them)."""
+    name = "sharded fused kernel (one-shard chunk)"
+    N, bufH, W = kept.shape
+    if kept.dtype != dk._storage_dtype(spec) or out.dtype != kept.dtype or \
+            gin.dtype != spec.acc_dtype or gout.dtype != spec.acc_dtype:
+        raise ValueError(f"{name}: dtypes {kept.dtype}, {out.dtype}, {gin.dtype}, "
+                         f"{gout.dtype} do not match the kernel spec {spec}")
+    _check(name, kept, out, gin, gout)
+    weave_args = _weave_args(offsets, kept.device)
+    rows = 2 * bufH if weave_args[0] else bufH - 1
+    if tuple(out.shape) != (N, rows, W) or tuple(gin.shape) != (N, _MAPS, W) or \
+            gin.shape != gout.shape:
+        raise ValueError(f"{name}: out {tuple(out.shape)}, carries {tuple(gin.shape)} "
+                         f"{tuple(gout.shape)} for kept {tuple(kept.shape)}")
+    if not 1 <= lo < hi <= bufH:
+        raise ValueError(f"{name}: steps {lo}..{hi - 1} outside 1..{bufH - 1}")
+    lib = _lib()
+    plan = full_plan(1, W, bufH, kept.element_size(), dk._max_smem_bytes(lib, kept.device),
+                     cluster=False)
+    scratch = _full_scratch(plan, N, spec, kept)
+    with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
+        _launch_full(lib, plan, spec, kept, out, weave_args, scratch, gin, gout, 1,
+                     max(0, min(w_glob, W)), lo, hi, aaf, name)
+
+
+def _launch_smooth(lib, plan: Plan, spec: KernelSpec, raw, out, n_space: int, base: int,
+                   steps: int, name: str) -> None:
+    """One K5 launch over steps base..base+steps-1 (the caller holds the
+    device and LAUNCH_LOCK)."""
+    C, bufHp1, S = raw.shape
+    code, sse2, stream = _codes(spec, raw.device)
+    err = lib.sno_shard_smooth_launch(
+        code, sse2, plan.cols, raw.data_ptr(), out.data_ptr(), C, n_space, bufHp1 - 1, S,
+        S // n_space, plan.H, plan.R, base, steps, plan.pitch_b, int(plan.cluster),
+        plan.threads, plan.smem_bytes, stream)
+    check_launch(lib, err, f"{name} launch", n_space)
+    LAUNCHES["smooth"] += 1
 
 
 def smooth_pass(raw: torch.Tensor, spec: KernelSpec, n_space: int,
@@ -276,16 +350,33 @@ def smooth_pass(raw: torch.Tensor, spec: KernelSpec, n_space: int,
     plan = smooth_plan(n_space, W_loc, bufH, dk._max_smem_bytes(lib, raw.device), chunk_rows)
     chunks = [(0, bufH - 1)] if plan.cluster else [
         (base, min(plan.R, bufH - 1 - base)) for base in range(0, bufH - 1, plan.R)]
-    code, sse2, stream = _codes(spec, raw.device)
     with torch.cuda.device(raw.device), dk.LAUNCH_LOCK:
         for base, steps in chunks:
-            err = lib.sno_shard_smooth_launch(
-                code, sse2, plan.cols, raw.data_ptr(), out.data_ptr(), C, n_space, bufH,
-                S, W_loc, plan.H, plan.R, base, steps, plan.pitch_b, int(plan.cluster),
-                plan.threads, plan.smem_bytes, stream)
-            check_launch(lib, err, f"{name} launch", n_space)
-            LAUNCHES["smooth"] += 1
+            _launch_smooth(lib, plan, spec, raw, out, n_space, base, steps, name)
     return out
+
+
+def smooth_chunk(raw: torch.Tensor, out: torch.Tensor, base: int, steps: int,
+                 spec: KernelSpec) -> None:
+    """K5 over steps base..base+steps-1 of ONE shard: ``raw`` [C, bufH+1, W]
+    (accumulator dtype, rows 0 and bufH zero; the box clamps at its columns
+    0 and W-1) -> rows base.. of ``out`` [C, bufH-1, W], seeded from ``out``
+    row base-1 (zero at base 0)."""
+    name = "sharded smoothing kernel (one-shard chunk)"
+    C, bufHp1, W = raw.shape
+    if raw.dtype != spec.acc_dtype or out.dtype != raw.dtype:
+        raise ValueError(f"{name}: dtypes {raw.dtype}, {out.dtype} do not match the "
+                         f"kernel spec {spec}")
+    _check(name, raw, out)
+    if tuple(out.shape) != (C, bufHp1 - 2, W):
+        raise ValueError(f"{name}: out {tuple(out.shape)} for raw {tuple(raw.shape)}")
+    if not (0 <= base and 0 < steps and base + steps <= bufHp1 - 2):
+        raise ValueError(f"{name}: steps {base}..{base + steps - 1} outside "
+                         f"0..{bufHp1 - 3}")
+    lib = _lib()
+    plan = smooth_plan(1, W, bufHp1 - 1, dk._max_smem_bytes(lib, raw.device), cluster=False)
+    with torch.cuda.device(raw.device), dk.LAUNCH_LOCK:
+        _launch_smooth(lib, plan, spec, raw, out, 1, base, steps, name)
 
 
 def prepare(kept: torch.Tensor, spec: KernelSpec, w_glob: int) -> torch.Tensor:

@@ -8,9 +8,13 @@ plane's width shards over the ``space`` axis with halo exchange
 
 A mesh is a ``[data, space]`` grid of torch devices, and a device may fill
 several slots: ``default_mesh(1, 4, devices=["cuda:0"] * 4)`` runs four
-width shards on one card, ``["cpu"] * 8`` is a CPU mesh.  Every ``space``
-slot of a data row must be one device for now; width halos across devices
-come with the multi-host (torch.distributed) port.
+width shards on one card, ``["cpu"] * 8`` is a CPU mesh.  A data row whose
+``space`` slots are one device runs the routes of one device (the K4 and K5
+clusters, or the scan); a row whose slots name different devices of this
+process, ``default_mesh(1, 2)`` on two cards, runs the route across devices
+(parallel.cross_device: per-slot launches, halo copies between devices).
+Rows may mix the two.  A ``space`` row never spans processes
+(parallel.multihost).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from sangnom_tpu_torch.core.clip import Clip
 from sangnom_tpu_torch.ops.sangnom import sangnom2_impl
+from sangnom_tpu_torch.parallel import cross_device
 from sangnom_tpu_torch.parallel.width_sharded import interpolate_field_width_sharded
 
 
@@ -116,21 +121,12 @@ def _validate_width_sharding(stride: int, n_space: int) -> None:
 
 
 def _row_devices(mesh: Mesh, data_axis: str, space_axis: Optional[str]):
-    """The device of each data row; a width-sharded row must be one device."""
+    """The slot devices of each data row: its ``space`` slots, or its first
+    slot alone without a space axis."""
     grid = mesh.devices
     if mesh.axis_names.index(data_axis) != 0:
         grid = grid.T
-    rows = []
-    for row in grid:
-        if space_axis and any(d != row[0] for d in row):
-            raise NotImplementedError(
-                f"width sharding across devices is not yet ported: the "
-                f"'{space_axis}' slots of a mesh row must be one device, got "
-                f"{[str(d) for d in row]} (width halos across devices come "
-                "with the multi-host torch.distributed port)"
-            )
-        rows.append(row[0])
-    return rows
+    return [list(row) if space_axis else [row[0]] for row in grid]
 
 
 def _sharded_interp(smooth: str, n_space: int):
@@ -187,11 +183,14 @@ def sangnom2_sharded(
     """SangNom2 over a device mesh.
 
     Frames shard over ``data_axis`` (padded to divide evenly, then trimmed):
-    each data row's frames go to its device, run there, and come back to the
-    clip's device.  If ``space_axis`` is given, plane widths also shard over
-    it, with halo exchange.  ``smooth`` overrides the opt-derived width-
-    sharded backend ("scan" | "chunked" | "fused" | "fused_noweave"; see
-    width_sharded.interpolate_field_width_sharded); on a CPU mesh the kernel
+    each data row's frames go to its first slot's device, run there, and
+    come back to the clip's device.  If ``space_axis`` is given, plane
+    widths also shard over it, with halo exchange: on one device when the
+    row's slots are one device, else across the devices of this process,
+    one slot a device (parallel.cross_device); a row never spans processes.
+    ``smooth`` overrides the opt-derived width-sharded backend ("scan" |
+    "chunked" | "fused" | "fused_noweave"; see
+    width_sharded.interpolate_field_width_sharded); on CPU slots the kernel
     arms run their plain versions.  ``numerics`` selects the numerics
     contract as on the single-device surface ("c" | "sse2").
 
@@ -200,6 +199,21 @@ def sangnom2_sharded(
     meaningless there), and width-sharding the sequential pool scan is
     rejected on value.  Use ``sangnom2(pool_compat=True)``.
     """
+    del threads
+    return _sharded(clip, mesh, order=order, aa=aa, aac=aac, dh=dh, luma=luma,
+                    chroma=chroma, opt=opt, data_axis=data_axis, space_axis=space_axis,
+                    smooth=smooth, numerics=numerics, pool_compat=pool_compat)
+
+
+def _sharded(clip: Clip, mesh: Mesh, order: int = 1, aa: int = 48, aac: int = 0,
+             dh: bool = False, luma: bool = True, chroma: bool = True, opt: int = -1,
+             data_axis: str = "data", space_axis: Optional[str] = None,
+             smooth: Optional[str] = None, numerics: str = "c", pool_compat: bool = False,
+             across: bool = False, chunk_rows: Optional[int] = None) -> Clip:
+    """`sangnom2_sharded`; ``across`` sends every width-sharded row through
+    the route across devices even where its slots repeat a device, with
+    ``chunk_rows`` rows between its halo exchanges
+    (cross_device.sangnom2_across)."""
     from sangnom_tpu_torch.api import (  # surface parity
         SangNomError, _validate, _validate_geometry, _validate_numerics)
     from sangnom_tpu_torch.core.geometry import buffer_stride_elems
@@ -214,12 +228,11 @@ def sangnom2_sharded(
             "pool is sequential cross-frame state; see docs/MULTICHIP.md) "
             "— use the single-device sangnom2(pool_compat=True)."
         )
-    del threads
 
     n_data = mesh.shape[data_axis]
     n_space = mesh.shape[space_axis] if space_axis else 1
-    devices = _row_devices(mesh, data_axis, space_axis)
-    on_cuda = all(d.type == "cuda" for d in devices)
+    rows = _row_devices(mesh, data_axis, space_axis)
+    on_cuda = all(d.type == "cuda" for row in rows for d in row)
     if opt == 1 and not on_cuda:
         raise SangNomError("SangNom2: opt=1 requires a CUDA backend.")
     fmt = clip.format
@@ -270,8 +283,7 @@ def sangnom2_sharded(
                 f"smooth={smooth!r}: expected one of 'scan', 'chunked', "
                 "'fused', 'fused_noweave'."
             )
-        impl_kw = dict(interp_fn=_sharded_interp(smooth, n_space),
-                       plane_widths=widths, stride=stride)
+        one_device = _sharded_interp(smooth, n_space)
     elif smooth is not None:
         # smooth selects among WIDTH-sharded backends; ignoring it on a
         # data-only mesh would let an A/B harness measure the wrong arm
@@ -279,14 +291,20 @@ def sangnom2_sharded(
             f"smooth={smooth!r} requires space_axis (width sharding); "
             "data-parallel shards run the per-shard backend picked by opt."
         )
-    else:
-        impl_kw = {}  # the per-device default backend
 
     per = (N + pad) // n_data
     outs = []
-    for d, device in enumerate(devices):
+    for d, slots in enumerate(rows):
+        home = slots[0]
+        impl_kw = {}  # data-only: the per-device default backend
+        if space_axis:
+            if across or any(s != home for s in slots):
+                interp = cross_device.sharded_interp(smooth, slots, chunk_rows)
+            else:
+                interp = one_device
+            impl_kw = dict(interp_fn=interp, plane_widths=widths, stride=stride)
         sl = slice(d * per, (d + 1) * per)
-        local = [p[sl].to(device) for p in planes]
+        local = [p[sl].to(home) for p in planes]
         res = sangnom2_impl(local, parity[sl], fmt, order, aa, aac, dh, luma,
                             chroma, opt, numerics=numerics, **impl_kw)
         outs.append([r.to(clip.device) for r in res])

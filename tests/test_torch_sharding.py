@@ -75,11 +75,24 @@ def test_mesh_construction(monkeypatch):
     assert default_mesh(1, 4, devices=["cuda:0"] * 4).devices.shape == (1, 4)
 
 
-def test_space_across_devices_not_ported():
-    _, tc = _both("GRAY8", 64, 16, 2)
+def test_space_across_devices_not_ported(monkeypatch):
+    """A row whose 'space' slots name different devices takes the route
+    across devices (parallel.cross_device), given the row's slot devices;
+    the route is recorded here and stood in for by the one-device route."""
+    from sangnom_tpu_torch.parallel import cross_device, sharding
+
+    seen = []
+
+    def record(smooth, devices, chunk_rows=None):
+        seen.append((smooth, [str(d) for d in devices], chunk_rows))
+        return sharding._sharded_interp(smooth, len(devices))
+
+    monkeypatch.setattr(cross_device, "sharded_interp", record)
+    jc, tc = _both("GRAY8", 64, 16, 2)
     mesh = Mesh([["cpu", "meta"]])
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        sangnom2_sharded(tc, mesh, space_axis="space")
+    got = sangnom2_sharded(tc, mesh, order=1, space_axis="space")
+    assert seen == [("scan", ["cpu", "meta"], None)]
+    _same(J.sangnom2(jc, opt=0, order=1), got)
     # a data-only run takes each row's first slot
     got = sangnom2_sharded(tc, mesh, order=1)
     _same(J.sangnom2(_both("GRAY8", 64, 16, 2)[0], opt=0, order=1), got)
