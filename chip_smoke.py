@@ -41,7 +41,12 @@ phase 4's dh output (the script re-runs itself as the workers, with
 the K5 route on phase 4's inputs, bit-equal to its outputs, launches, halo
 exchanges and PEER_BYTES against their formulas, timed at R 4/16/32/64 in
 turns with the one-device cluster route; real meshes of two and four cards
-when the machine has them.  Each phase
+when the machine has them.  Phase 20: the parity campaign
+(``tools.parity_campaign``) at API level, the fixed 12-case set and the
+first cases of the recorded random, compat, sharded and bob seeds, against
+the native oracle and the plain path.  Phase 21: the streaming tools,
+``stream_soak 240 32`` (whole against windowed CLI runs, byte identity,
+peak RSS) and ``stream_attr`` at 1080.  Each phase
 prints one line or more; any
 failure raises, so the script exits nonzero and never prints the final
 ``"ok"`` line.  Imports nothing of JAX.
@@ -49,6 +54,7 @@ failure raises, so the script exits nonzero and never prints the final
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import io
 import json
@@ -2032,6 +2038,100 @@ def phase_cross_device(clip_dh, woven, out_dh, out_bob, card, details):
     return res
 
 
+# phase 20's slice of the campaigns: (name, mode flag or None for the fixed
+# set, cases, seed); the generators draw in order, so these are the first
+# lines of results/tpu_campaign_*_r05.txt and the whole fixed set
+CAMPAIGN_SLICE = (("fixed", None, 12, None), ("random", "--random", 8, 551),
+                  ("compat", "--compat", 6, 552), ("sharded", "--sharded", 4, 553),
+                  ("bob", "--bob", 4, 554))
+# the kernels each mode must launch: (counter, key or None for deint's int)
+CAMPAIGN_KERNELS = {"oracle": (("deint", None),),
+                    "compat": (("deint", None), ("pool", "prepare"), ("pool", "split3"),
+                               ("pool", "finalize")),
+                    "bob": (("deint", None),),
+                    "sharded": (("shard", "full"), ("shard", "smooth"))}
+
+
+def phase_campaign(card, details):
+    """Phase 20: the parity campaign (``tools.parity_campaign.run_cases``)
+    at API level on the card: the fixed 12-case set (4K, width 1919, alpha
+    with dh, 4:1:1, float) and the first cases of the recorded seeds,
+    random (oracle), compat (opt=1 against opt=0 and the oracle, the
+    POOL_FAST arm), sharded (1x1 and 1x4 meshes, two slots across devices)
+    and bob.  Raises on any failure.  Each mode's counts are set to 0 just
+    before it and read just after; each must launch its kernels."""
+    from sangnom_tpu_torch.ops import deint_kernel as dk
+    from sangnom_tpu_torch.ops import pool_kernel as pk
+    from sangnom_tpu_torch.parallel import shard_kernel as sk
+    from sangnom_tpu_torch.tools import parity_campaign as pc
+
+    res = {}
+    for name, flag, n, seed in CAMPAIGN_SLICE:
+        if flag is None:
+            cases, mode = pc.CASES[:n], "oracle"
+        else:
+            gen, mode, _ = pc.MODES[flag]
+            cases = gen(n, seed)
+        stats: dict = {}
+        torch.cuda.synchronize()
+        dk.LAUNCHES = 0
+        pk.reset_launches()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        fails = pc.run_cases(cases, mode, DEVICE, stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"deint": dk.LAUNCHES, "pool": dict(pk.LAUNCHES), "shard": dict(sk.LAUNCHES)}
+        if fails:
+            raise AssertionError(f"campaign {name}: {fails} failures")
+        for counter, key in CAMPAIGN_KERNELS[mode]:
+            got = counts[counter] if key is None else counts[counter][key]
+            if DEVICE == "cuda" and got == 0:
+                raise AssertionError(f"campaign {name}: no {counter} {key or ''} launch")
+        fast = (f"; POOL_FAST took the fast route in {stats.get('fast', 0)} of "
+                f"{stats.get('pool', 0)} pool_compat cases" if mode == "compat" else "")
+        log(f"[20 campaign] {name} ({len(cases)} cases{f', seed {seed}' if seed else ''}): "
+            f"0 failures in {wall:.1f} s; launches {counts}{fast} | {card}")
+        res[name] = {"cases": len(cases), "wall_s": wall, "launches": counts, **stats}
+    details["campaign"] = res
+    return res
+
+
+def phase_stream_tools(card, details):
+    """Phase 21: the streaming tools on the card.  ``stream_soak 240 32``:
+    240 frames of 640x480 through the CLI whole and with ``--window 32`` in
+    child processes, byte-identical, with both peak RSS values; then
+    ``stream_attr`` at 1920x1080, 48 frames, window 24 in process (the
+    deint counts set to 0 just before and read just after), its JSON."""
+    from sangnom_tpu_torch.ops import deint_kernel as dk
+    from sangnom_tpu_torch.tools import stream_attr, stream_soak
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = stream_soak.main(["240", "32", "plain", "640x480", "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    if rc != 0 or not lines or not lines[-1].startswith("byte-identical: True"):
+        raise AssertionError(f"stream_soak 240 32 exited {rc}:\n{buf.getvalue()[-2000:]}")
+    rss = {ln.split(":")[0]: int(ln.split("PEAK_RSS_MB=")[1].split()[0])
+           for ln in lines if "PEAK_RSS_MB=" in ln}
+    log(f"[21 stream tools] stream_soak 240 32 (640x480 --order 1): whole and "
+        f"--window 32 byte-identical, peak RSS {rss} MB, {wall:.1f} s | {' / '.join(lines)} "
+        f"| {card}")
+    torch.cuda.synchronize()
+    dk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        attr = stream_attr.main(["48", "1920x1080", "24", "--device", DEVICE])
+    torch.cuda.synchronize()
+    if DEVICE == "cuda" and dk.LAUNCHES == 0:
+        raise AssertionError("stream_attr launched no deint kernel")
+    log(f"[21 stream tools] stream_attr 48 1920x1080 24: {json.dumps(attr)} "
+        f"({dk.LAUNCHES} deint launches, {time.perf_counter() - t0:.1f} s) | {card}")
+    details["stream_tools"] = {"soak_rss_mb": rss, "soak_s": wall, "attr": attr}
+
+
 def main_path_inputs():
     """The bench's 1080 inputs, seed 7: 120 dh fields first, then 60
     interlaced frames."""
@@ -2316,6 +2416,17 @@ def main() -> int:
     cross = phase_cross_device(clip_dh, woven, out_dh, out_bob, card, details)
     del clip_dh, woven, out_dh, out_bob
     log(f"[19 cross-device] done in {time.perf_counter() - t0:.1f} s")
+
+    # 20. the parity campaign at API level, bounded: the fixed set and the
+    # first cases of the recorded seeds
+    t0 = time.perf_counter()
+    phase_campaign(card, details)
+    log(f"[20 campaign] done in {time.perf_counter() - t0:.1f} s")
+
+    # 21. the streaming tools: the soak (child processes) and stream_attr
+    t0 = time.perf_counter()
+    phase_stream_tools(card, details)
+    log(f"[21 stream tools] done in {time.perf_counter() - t0:.1f} s")
 
     log("[details] " + json.dumps(details))
     dk_bytes, dk_ops = 0, 0
