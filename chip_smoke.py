@@ -46,7 +46,10 @@ when the machine has them.  Phase 20: the parity campaign
 first cases of the recorded random, compat, sharded and bob seeds, against
 the native oracle and the plain path.  Phase 21: the streaming tools,
 ``stream_soak 240 32`` (whole against windowed CLI runs, byte identity,
-peak RSS) and ``stream_attr`` at 1080.  Each phase
+peak RSS) and ``stream_attr`` at 1080.  Phase 22: the headline bench
+(``python -m sangnom_tpu_torch.bench``) in a fresh process: the 1080i bob,
+the order=1 dh call, the config matrix and pool_compat, every parity gate
+ok, and its numbers beside the SSE2 baseline.  Each phase
 prints one line or more; any
 failure raises, so the script exits nonzero and never prints the final
 ``"ok"`` line.  Imports nothing of JAX.
@@ -2132,6 +2135,39 @@ def phase_stream_tools(card, details):
     details["stream_tools"] = {"soak_rss_mb": rss, "soak_s": wall, "attr": attr}
 
 
+def phase_bench(card, details):
+    """Phase 22: ``python -m sangnom_tpu_torch.bench`` in a fresh process.
+    Raises unless it exits 0 with a JSON last line whose bob and dh rates
+    are positive, whose five configs all read parity "ok", whose two
+    pool_compat rates are present and which carries a regression object."""
+    wall, out, err = _subprocess([sys.executable, "-m", "sangnom_tpu_torch.bench"],
+                                 "the bench", timeout=900)
+    res = json.loads(out.strip().splitlines()[-1])
+    cfgs = res.get("configs") or {}
+    problems = [k for k in ("value", "order1_dh_fps") if not res.get(k, 0) > 0]
+    problems += [f"configs.{n}" for n, c in cfgs.items() if c.get("parity") != "ok"]
+    if len(cfgs) != 5:
+        problems.append(f"{len(cfgs)} configs")
+    problems += [k for k in ("pool_compat_fps", "pool_compat_carried_fps") if res.get(k) is None]
+    if not isinstance(res.get("regression"), dict):
+        problems.append("regression")
+    if problems:
+        raise AssertionError(f"the bench: {problems}\n{out[-2000:]}\n{err[-4000:]}")
+    for line in err.strip().splitlines():
+        log(f"[22 bench stderr] {line}")
+    cfg_fps = ", ".join(f"{n.split('_')[0]} {c['fps']}" for n, c in cfgs.items())
+    log(f"[22 bench] {res['metric']} {res['value']} frames/s (bob, windows "
+        f"{res['trials_ms']} ms), order1_dh_fps {res['order1_dh_fps']} (windows "
+        f"{res['order1_trials_ms']} ms), pool_compat {res['pool_compat_fps']} / carried "
+        f"{res['pool_compat_carried_fps']}, configs {cfg_fps} (all parity ok); "
+        f"vs_baseline {res['vs_baseline']} over SSE2 {res['baseline_sse2_fps']} fps "
+        f"[{res['baseline_provenance']}]; regression ok {res['regression']['ok']}; "
+        f"build_s {res['build_s']}; {wall:.1f} s wall | {res['device']['name']}, "
+        f"{res['device']['power_limit']} | {card}")
+    details["bench"] = res
+    return res
+
+
 def main_path_inputs():
     """The bench's 1080 inputs, seed 7: 120 dh fields first, then 60
     interlaced frames."""
@@ -2427,6 +2463,11 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_stream_tools(card, details)
     log(f"[21 stream tools] done in {time.perf_counter() - t0:.1f} s")
+
+    # 22. the headline bench, in a fresh process
+    t0 = time.perf_counter()
+    phase_bench(card, details)
+    log(f"[22 bench] done in {time.perf_counter() - t0:.1f} s")
 
     log("[details] " + json.dumps(details))
     dk_bytes, dk_ops = 0, 0
