@@ -49,7 +49,13 @@ the native oracle and the plain path.  Phase 21: the streaming tools,
 peak RSS) and ``stream_attr`` at 1080.  Phase 22: the headline bench
 (``python -m sangnom_tpu_torch.bench``) in a fresh process: the 1080i bob,
 the order=1 dh call, the config matrix and pool_compat, every parity gate
-ok, and its numbers beside the SSE2 baseline.  Each phase
+ok, and its numbers beside the SSE2 baseline.  Phase 23: planes wider than
+one block (past 8192 smoothed columns) through every route: the
+15360x8640 4:2:0 bob, single-rate and dh calls at 8448-65600 columns (K4 on
+k blocks of a cluster; 65600 on the chunk route), pool_compat at 8448 and
+12288 (the walk split over a cluster; the K7 route and ``POOL_FAST``), a
+1x2 sharded mesh at 20480 and four slots across at 40960, each bit-equal
+to opt=0 with its launches on their formula, route and ms a call.  Each phase
 prints one line or more; any
 failure raises, so the script exits nonzero and never prints the final
 ``"ok"`` line.  Imports nothing of JAX.
@@ -2168,6 +2174,347 @@ def phase_bench(card, details):
     return res
 
 
+# --- phase 23: planes wider than one block ------------------------------------
+
+# phase 23's calls: (format, width, height, frames, mode, filter kw) through
+# the main path; (format, width, height, frames, POOL_FAST) through
+# pool_compat; (width, height) of the 1x2 sharded call and of the call across
+# four slots
+WIDE_MAIN = (
+    ("YUV420P8", 15360, 8640, 2, "bob", {}),
+    ("GRAY8", 8448, 64, 4, "single", dict(order=1)),
+    ("GRAY8", 8448, 64, 4, "single", dict(order=2)),
+    ("GRAY16", 10240, 256, 4, "dh", dict(order=1, dh=True)),
+    ("YUV444PS", 8448, 128, 2, "single", dict(order=2)),
+    ("GRAY8", 65600, 32, 2, "single", dict(order=1)),  # past 8 blocks: the chunk route
+)
+WIDE_POOL = (("YUV420P8", 8448, 540, 4, False), ("YUV420P8", 8448, 540, 4, True),
+             ("GRAY8", 12288, 270, 3, False))
+WIDE_SHARDED = (20480, 64)
+WIDE_ACROSS = (40960, 32)
+
+
+def _wide_clip(fname, w, h, n, seed, **kw):
+    from sangnom_tpu_torch import Clip, get_format
+
+    fmt = get_format(fname)
+    rng = np.random.default_rng(seed)
+    planes = [_rand_plane(rng, (n,) + fmt.plane_dims(w, h, i)[::-1], fmt)
+              for i in range(min(fmt.num_planes, 3))]
+    return Clip.from_numpy(planes, fmt, device=DEVICE, **kw)
+
+
+def wide_passes(clip, mode: str):
+    """(name, fields, kept rows, width) of each plane pass of a call on
+    ``clip``: luma, then U and V in one batch (``mode``: "bob", "dh" or
+    "single")."""
+    n = clip.num_frames * (2 if mode == "bob" else 1)
+    planes = [("luma", clip.planes[0], n)]
+    if len(clip.planes) >= 3:
+        planes.append(("U+V", clip.planes[1], 2 * n))
+    return [(name, fields, p.shape[1] if mode == "dh" else p.shape[1] // 2, p.shape[2])
+            for name, p, fields in planes]
+
+
+def _k4_scratch(fp, n_fields: int, elem: int) -> int:
+    """Device bytes the wide route's K4 launch allocates beside its output:
+    the global route's rows and raw slices, the chunk route's carried rows."""
+    plan, k = fp.plan, fp.k
+    nbytes = 0
+    if plan.route == "global":
+        nbytes += n_fields * k * 9 * (plan.pitch_b * 4 + plan.pitch_p * elem)
+    if not plan.cluster:
+        nbytes += 2 * n_fields * 9 * fp.width * 4
+    return nbytes
+
+
+def wide_expected(clip, mode: str, stride: int, spec) -> tuple:
+    """(launches {"deint", "full"} on the routes' formulas, route text,
+    (bytes, ops) of the call) for the filter on ``clip``: a pass past one
+    block is K4 over its plan's k blocks (one launch on the cluster route,
+    a launch a chunk of R rows on the chunk route), the others K1."""
+    from sangnom_tpu_torch.core.geometry import width_tiers
+    from sangnom_tpu_torch.ops import deint_kernel as dk
+
+    want = {"deint": 0, "full": 0}
+    text, nbytes, ops = [], 0, 0
+    elem = clip.planes[0].element_size()
+    for name, n_fields, bufH, w in wide_passes(clip, mode):
+        fp = dk._card_plan(w, bufH, stride, spec, torch.device(DEVICE))
+        S = width_tiers(w, bufH, stride, spec)[2]
+        b_, o_ = deint_work(n_fields, bufH, w, S, elem)
+        nbytes, ops = nbytes + b_, ops + o_
+        if fp.k == 1:
+            want["deint"] += 1
+            text.append(f"{name} {w}x{bufH} (S {S}): K1, {fp.plan.route}")
+            continue
+        want["full"] += fp.plan.launches
+        route = "cluster" if fp.plan.cluster else f"chunk, {fp.plan.launches} launches"
+        text.append(f"{name} {w}x{bufH} (S {S}): K4 k={fp.k} x {fp.W_loc} columns "
+                    f"(padded {fp.width}), {route}, {fp.plan.route}, "
+                    f"{fp.plan.smem_bytes} B shared, scratch {_k4_scratch(fp, n_fields, elem)} B")
+    return want, "; ".join(text), (nbytes, ops)
+
+
+def _colrows(clip, mode: str) -> int:
+    """Interpolated pixels of a call: fields x (kept rows - 1) x width."""
+    return sum(n * (bufH - 1) * w for _, n, bufH, w in wide_passes(clip, mode))
+
+
+def _counts(dk, pk, sk) -> dict:
+    return {"deint": dk.LAUNCHES, **{f"pool {k}": v for k, v in pk.LAUNCHES.items()},
+            **{f"shard {k}": v for k, v in sk.LAUNCHES.items()}}
+
+
+def _reset(dk, pk, sk, ws=None):
+    dk.LAUNCHES = 0
+    pk.reset_launches()
+    sk.reset_launches()
+    if ws is not None:
+        ws.reset_exchanges()
+
+
+WIDE_SWEEP = (2, 4, 8)  # blocks a field of the bob's luma pass in the sweep
+
+
+def wide_k_sweep(clip, spec, card: str) -> dict:
+    """The bob's luma pass through K4 (``shard_kernel.full_pass``, offset 0,
+    the cluster route) at the plan's k and at narrower blocks, in turns
+    (ascending, then descending), outputs equal across k: ms a pass, best
+    of 2.  Not the route the filter takes; it says what the least k costs
+    (8-column blocks) against blocks of the 4-column build."""
+    from sangnom_tpu_torch.core.fields import _split_plane
+    from sangnom_tpu_torch.core.geometry import aaf_as_pixel, scaled_aa_thresholds
+    from sangnom_tpu_torch.ops import deint_kernel as dk
+    from sangnom_tpu_torch.parallel import shard_kernel as sk
+
+    fields = _split_plane(clip.planes[0], True).contiguous()
+    N, bufH, S = fields.shape
+    aaf = aaf_as_pixel(scaled_aa_thresholds(48, 0, clip.format)[0], clip.format)
+    limit = dk._max_smem_bytes(dk._load(), torch.device(DEVICE))
+    ks = []
+    for k in WIDE_SWEEP:
+        plan = sk.full_plan(k, S // k, bufH, 1, limit)
+        if S % k == 0 and sk.occupancy("full", spec, plan, k, torch.device(DEVICE))["clusters"] > 0:
+            ks.append((k, plan))
+    ref = sk.full_pass(fields, 0, aaf, spec, ks[0][0], S)
+    times = {k: [] for k, _ in ks}
+    for order in (ks, ks[::-1]):
+        for k, _ in order:
+            got = sk.full_pass(fields, 0, aaf, spec, k, S)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"[23 wide] bob luma pass at k={k} != k={ks[0][0]}")
+            del got
+            times[k].append(cuda_ms(lambda k=k: sk.full_pass(fields, 0, aaf, spec, k, S), 1))
+    out = {k: {"ms": min(times[k]), "windows": times[k], "cols": plan.cols,
+               "threads": plan.threads, "route": plan.route} for k, plan in ks}
+    log("[23 wide] bob luma pass (" + f"{N}x{bufH}x{S}" + ") through K4 in turns, outputs "
+        "equal: " + "; ".join(f"k={k} ({v['cols']} columns x {v['threads']} threads, "
+                              f"{v['route']}) {v['ms']:.3f} ms ({v['ms'] / (bufH - 1) * 1e3:.3f} "
+                              f"us a row step)" for k, v in out.items()) + f" | {card}")
+    return out
+
+
+def phase_wide(card: str, bob_ms: float, details) -> dict:
+    """Phase 23: planes wider than one block (more than 8192 smoothed
+    columns) through the public calls: the 15360x8640 4:2:0 bob, single-rate
+    and dh calls at 8448-65600 columns (65600: the chunk route past 8
+    blocks), pool_compat at 8448 (the K7 route and POOL_FAST) and 12288,
+    ``sangnom2_sharded`` on a 1x2 mesh of the card at 20480 and the route
+    across devices with four slots of the card at 40960.  Each call's
+    output bit-equal to opt=0, its launches on their formulas, its route,
+    its ms a call (CUDA events, best of 2) against its bound and the 1080
+    bob's ns a column-row; each count set to 0 just before a call and read
+    just after."""
+    from sangnom_tpu_torch import bob, sangnom2
+    from sangnom_tpu_torch.core.geometry import (
+        aaf_as_pixel, buffer_stride_elems, scaled_aa_thresholds, width_tiers)
+    from sangnom_tpu_torch.ops import deint_kernel as dk
+    from sangnom_tpu_torch.ops import pool_carry as pc
+    from sangnom_tpu_torch.ops import pool_kernel as pk
+    from sangnom_tpu_torch.ops.primitives import KernelSpec
+    from sangnom_tpu_torch.parallel import cross_device as cd
+    from sangnom_tpu_torch.parallel import default_mesh, sangnom2_sharded
+    from sangnom_tpu_torch.parallel import shard_kernel as sk
+    from sangnom_tpu_torch.parallel import width_sharded as ws
+    from sangnom_tpu_torch.parallel.sharding import _sharded_pad_width, _sub_split
+
+    t_phase = time.perf_counter()
+    bob_colrows = N_IN * 2 * (539 * 1920 + 2 * 269 * 960)
+    bob_ns = bob_ms * 1e6 / bob_colrows
+    res, total = {}, {}
+
+    def equal(name, got, want):
+        for i, (g, r) in enumerate(zip(got, want)):
+            if g.shape != r.shape or not torch.equal(g, r):
+                raise AssertionError(f"[23 wide] {name} plane {i} != opt=0, max_abs "
+                                     f"{max_abs(g, r) if g.shape == r.shape else 'shape'}")
+
+    def drive(name, call, want_counts, plain_planes, route, work, colrows):
+        torch.cuda.synchronize()
+        _reset(dk, pk, sk, ws)
+        out = call()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in _counts(dk, pk, sk).items() if v}
+        check_launches(f"[23 wide] {name}", got, {k: v for k, v in want_counts.items() if v})
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        equal(name, out.planes, plain_planes() if callable(plain_planes) else plain_planes)
+        del out
+        ms = min(cuda_ms(call, 1) for _ in range(2))
+        b_ms, b_by = bound(*work)
+        ns = ms * 1e6 / colrows
+        log(f"[23 wide] {name}: bit-equal to opt=0; launches {got} on their formula; "
+            f"{ms:.3f} ms a call (best of 2), bound {b_ms:.4f} ms ({b_by}), "
+            f"{ns:.4f} ns a column-row against the 1080 bob's {bob_ns:.4f} | route: "
+            f"{route} | {card}")
+        res[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by, "launches": got,
+                     "ns_colrow": ns, "route": route}
+        torch.cuda.empty_cache()
+
+    # the main-path calls: the bob, single-rate and dh, K4 past one block
+    k4_pass = None
+    for seed, (fname, w, h, n, mode, kw) in enumerate(WIDE_MAIN, 230):
+        name = f"{'bob ' if mode == 'bob' else ''}{fname} {w}x{h} x{n} {kw or ''}"
+        clip = _wide_clip(fname, w, h, n, seed, tff=True)
+        spec = KernelSpec.from_format(clip.format)
+        stride = buffer_stride_elems(w, clip.format.component_size)
+        want, route, work = wide_expected(clip, mode, stride, spec)
+        if mode == "bob":
+            call = lambda c=clip: bob(c)  # noqa: E731
+
+            def plain(c=clip):  # one input frame at a time bounds the plain path's memory
+                outs = [bob(c[j:j + 1], opt=0).planes for j in range(c.num_frames)]
+                return [torch.cat([o[i] for o in outs]) for i in range(3)]
+        else:
+            call = lambda c=clip, kw=kw: sangnom2(c, **kw)  # noqa: E731
+            plain = lambda c=clip, kw=kw: sangnom2(c, opt=0, **kw).planes  # noqa: E731
+        drive(name, call, {"deint": want["deint"], "shard full": want["full"]}, plain,
+              route, work, _colrows(clip, mode))
+        if fname == "GRAY16":
+            k4_pass = (clip.planes[0], spec, stride, clip.format)
+        if mode == "bob":
+            res["bob luma k sweep"] = wide_k_sweep(clip, spec, card)
+        del clip
+
+    # the K4 pass of the dh case alone, against its plain twin (not counted)
+    kept, spec, stride, fmt = k4_pass
+    aaf = aaf_as_pixel(scaled_aa_thresholds(48, 0, fmt)[0], fmt)
+    k4 = _timed(lambda: dk.deinterlace_field_batch_fused(kept, 0, aaf, spec, stride),
+                lambda: dk.deinterlace_field_batch_plain(kept, 0, aaf, spec, stride), 2)
+    N, bufH, w = kept.shape
+    k4["bound_ms"], k4["bound_by"] = bound(*deint_work(N, bufH, w,
+                                                       width_tiers(w, bufH, stride, spec)[2], 2))
+    log(f"[23 wide] K4 wide pass GRAY16 {N}x{bufH}x{w} alone: {k4['ms']:.3f} ms, plain "
+        f"{k4['plain_ms']:.3f} ms, bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}), "
+        f"max_abs_err {k4['max_abs_err']} | {card}")
+    del kept, k4_pass
+
+    # pool_compat: the K7 route (its walk split over a cluster) and POOL_FAST
+    walk = None
+    defaults = pc.POOL_FAST, pc.POOL_FAST_BATCH
+    try:
+        for fname, w, h, n, fast in WIDE_POOL:
+            name = f"pool_compat {fname} {w}x{h} x{n} order=1{' POOL_FAST' if fast else ''}"
+            clip = _wide_clip(fname, w, h, n, w + h + n)
+            spec = KernelSpec.from_format(clip.format)
+            stride = buffer_stride_elems(w, clip.format.component_size)
+            P = h // 2
+            plan = pk.card_walk_plan(spec, stride, P - 1, torch.device(DEVICE))
+            planes = min(clip.format.num_planes, 3)
+            passes = planes * (1 if fast else n)
+            want = {"pool prepare": passes, "pool split3": passes * plan.launches,
+                    "pool finalize": passes}
+            route = (f"walk k={plan.k} x {plan.W_loc} columns, H {plan.H}, R {plan.R}, "
+                     f"{'cluster' if plan.cluster else 'chunk'}, {plan.cols} columns x "
+                     f"{plan.threads} threads, {plan.smem_bytes} B shared, scratch "
+                     f"{0 if plan.cluster else 9 * (P - 1) * stride * 4} B")
+            work = [0, 0]
+            for i in range(planes):
+                pw, ph = clip.format.plane_dims(w, h, i)
+                b_, o_ = pool_fused_work(P, stride, ph // 2, pw)
+                work = [work[0] + n * b_, work[1] + n * o_]
+            pc.POOL_FAST, pc.POOL_FAST_BATCH = fast, 16
+            want_planes = sangnom2(clip, order=1, pool_compat=True, opt=0).planes
+            drive(name, lambda c=clip: sangnom2(c, order=1, pool_compat=True), want,
+                  want_planes, route, work, _colrows(clip, "single"))
+            if walk is None:
+                from sangnom_tpu_torch.ops.sangnom import sangnom2_pool_stream
+
+                _, pool = sangnom2_pool_stream(clip, None, order=1)  # a stale pool
+                walk = (pool, spec)
+            del clip, want_planes
+    finally:
+        pc.POOL_FAST, pc.POOL_FAST_BATCH = defaults
+
+    # the wide walk alone on the luma pass's pool, against its plain twin
+    pool, spec = walk
+    P, S = pool.shape[1] - 1, pool.shape[2]
+    row0, body, tail = (x.contiguous() for x in (pool[:, 0], pool[:, 1:P], pool[:, P]))
+    pw = _timed(lambda: pk.smooth_split3_(row0, body.clone(), tail, spec),
+                lambda: pk.smooth_split3_plain_(row0, body.clone(), tail, spec), 5)
+    pw["bound_ms"], pw["bound_by"] = bound(*pool_smooth_work(P, S))
+    occ = pk.walk_clusters(spec, S, P - 1, DEVICE)
+    log(f"[23 wide] pool wide walk alone, [9, {P + 1}, {S}]: {pw['ms']:.3f} ms "
+        f"({pw['ms'] / (P - 1) * 1e3:.3f} us a row step), plain {pw['plain_ms']:.3f} ms, "
+        f"bound {pw['bound_ms']:.4f} ms ({pw['bound_by']}), max_abs_err "
+        f"{pw['max_abs_err']}; build {occ} | {card}")
+    del pool, walk, row0, body, tail
+
+    # sharded past one block: a 1x2 mesh of the card, then four slots across
+    w_sh, h_sh = WIDE_SHARDED
+    clip = _wide_clip("YUV420P8", w_sh, h_sh, 2, 2048)
+    spec = KernelSpec.from_format(clip.format)
+    stride = w_sh
+    mesh = default_mesh(1, 2, devices=[DEVICE] * 2)
+    rows = [list(mesh.devices[0])]
+    k = _sub_split(stride, 2, "fused", rows, False, None)
+    n = 2 * k
+    passes = wide_passes(clip, "single")
+    route, work = [], [0, 0]
+    limit = dk._max_smem_bytes(dk._load(), torch.device(DEVICE))
+    for pname, nf, bufH, w in passes:
+        S_eff = _sharded_pad_width(w, 2 * bufH, stride, n, clip.format, False)
+        plan = sk.full_plan(n, S_eff // n, bufH, 1, limit)
+        route.append(f"{pname} {S_eff} columns over {n} blocks of {S_eff // n}, "
+                     f"{'cluster' if plan.cluster else 'chunk'}, {plan.route}")
+        b_, o_ = deint_work(nf, bufH, w, S_eff)
+        work = [work[0] + b_, work[1] + o_]
+    want_planes = sangnom2(clip, order=1, opt=0).planes
+    drive(f"sharded 1x2 YUV420P8 {w_sh}x{h_sh} x2 (K4)",
+          lambda: sangnom2_sharded(clip, mesh, space_axis="space", order=1),
+          {"shard full": len(passes)}, want_planes,
+          f"each shard of {w_sh // 2} split into {k}: " + "; ".join(route), work,
+          _colrows(clip, "single"))
+    del clip, want_planes
+
+    w_ac, h_ac = WIDE_ACROSS
+    clip = _wide_clip("GRAY8", w_ac, h_ac, 2, 4096)
+    stride = w_ac
+    slots = [DEVICE] * 4
+    k = _sub_split(stride, 4, "fused", [slots], True, None)
+    n = 4 * k
+    _, _, bufH, w = wide_passes(clip, "single")[0]
+    R, halo = cd.k4_geometry(w // n, bufH - 1)
+    chunks = -(-(bufH - 1) // R)
+    want_planes = sangnom2(clip, order=1, opt=0).planes
+    drive(f"across 4 slots of the card, GRAY8 {w_ac}x{h_ac} x2",
+          lambda: cd.sangnom2_across(clip, slots, order=1),
+          {"shard full": n * chunks}, want_planes,
+          f"each slot of {w_ac // 4} split into {k}: {n} slots of {w // n} columns, halo "
+          f"{halo}, R {R}, {chunks} chunk(s) a slot",
+          deint_work(2, bufH, w, w), _colrows(clip, "single"))
+    del clip, want_planes
+    torch.cuda.empty_cache()
+
+    seconds = time.perf_counter() - t_phase
+    log(f"[23 wide] launches on the phase's calls {total}; done in {seconds:.1f} s | {card}")
+    out = {"cases": res, "k4": k4, "walk": pw, "walk_build": occ, "launches": total,
+           "seconds": seconds}
+    details["wide"] = out
+    return out
+
+
 def main_path_inputs():
     """The bench's 1080 inputs, seed 7: 120 dh fields first, then 60
     interlaced frames."""
@@ -2469,6 +2816,10 @@ def main() -> int:
     phase_bench(card, details)
     log(f"[22 bench] done in {time.perf_counter() - t0:.1f} s")
 
+    # 23. planes wider than one block, through every route
+    wide = phase_wide(card, min(times[("bob", "kernel")]), details)
+    log(f"[23 wide planes] done in {wide['seconds']:.1f} s")
+
     log("[details] " + json.dumps(details))
     dk_bytes, dk_ops = 0, 0
     for src, _, _, _ in launches_bob:
@@ -2573,6 +2924,22 @@ def main() -> int:
             "launches": probe_launches[lkey], "max_abs_err": probe_res[ekey][1],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+        })
+    for name, replaces, m, lkey in (
+        ("shard_full_kernel (K4) as the wide main path: a field past one block over "
+         "k blocks of a cluster (timed: the GRAY16 10240x256 dh pass)",
+         "sangnom_tpu/ops/pallas_kernel.py:463", wide["k4"], "shard full"),
+        ("pool_smooth_kernel's cluster mode (WIDE): the pool walk (K3/K6, K7's walk, "
+         "the batched walk) split over a cluster past one block (timed: the 8448 luma "
+         "pass's walk)",
+         "sangnom_tpu/ops/pool_carry.py:268", wide["walk"], "pool split3"),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": SHARD_SOURCE if lkey == "shard full" else POOL_SOURCE,
+            "replaces": replaces, "launches": wide["launches"].get(lkey, 0),
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": None,
         })
     if any(k["max_abs_err"] != 0.0 for k in kernels):
         raise AssertionError(f"a kernel disagrees with its twin: {kernels}")

@@ -34,6 +34,9 @@
 //      (sno_pool_prepare_batch_launch, sno_pool_finalize_batch_launch).
 //      A 1080 walk is 9K blocks of 480 threads on 132 SMs; the serial steps
 //      stay 539, now shared by K frames.
+//   The wide walk (the same kernel, WIDE true, via sno_pool_wide_launch):
+//      K3, K6 and the batched walk on a pool past one block's columns, a
+//      map's row split over the blocks of a thread-block cluster.
 //
 // What bounds them.  The walk: a 1080 pass moves 75 MB (about 22 us at
 // 3.35 TB/s) in 539 dependent row steps, so its time is the latency of one
@@ -50,7 +53,7 @@
 // Exactness: the numerics of common.cuh; the vertical sum is
 // (sm + row b) + row b+1 and the box strictly left to right.
 
-#include "common.cuh"
+#include "cluster.cuh"
 
 namespace {
 
@@ -68,17 +71,44 @@ __host__ __device__ inline int line_pitch(int S, int cols) {
   return (S + cols + 8 + 3) / 4 * 4;
 }
 
-// K3/K6: one block per map; thread t owns columns c0 = t*COLS ..
-// c0+COLS-1 of the S columns.  Input row r of the walk (r = 0..n) is body
-// row r for r < n and the tail for r == n; step t (0..n-1) writes the
-// smoothed body row t.  Each buffer is [9, rows, S] with the given map
-// stride (elements).
-template <typename T, bool SSE2, int COLS>
+// The walk: K3/K6, the batched walk and, with WIDE, the wide walk.  Input
+// row r of the walk (r = 0..n) is row r of `in` for r < n and the tail for
+// r == n; step t writes the smoothed body row t.  Each buffer is
+// [maps, rows, S] with the given map stride (elements).  Thread t owns
+// columns c0 = t*COLS .. c0+COLS-1 of its block's columns.
+//
+// WIDE false (a row within one block): one block a map, steps 0..n-1 in
+// one launch, seeded by row0, in place (`in` is the body); the arguments
+// after S are not read.
+//
+// WIDE true (a map's row past one block's columns, cluster.cuh): block
+// (m, q), q fastest, walks map m's shard q of W_loc columns plus a halo of
+// H = 3R columns on each inner side over steps base..base+steps-1 and
+// writes its own columns; the seed is row0 at base 0, else body row
+// base-1.
+//   cluster_mode: the n_blk blocks of a map form a cluster, in == body, one
+//   launch walks every step, and the carried row's halo comes from the
+//   neighbours' shared memory every R steps.  A block also reads the raw
+//   rows at its halo columns from the pool, where the neighbour writes its
+//   smoothed rows in place; it reads row r in step r-1-D (D rows ahead) or
+//   before its first step, and the neighbour writes row r in step r.  With
+//   R <= D+1 (the launcher refuses more) a cluster barrier lies between the
+//   two (after steps R-1, 2R-1, ..., and one before step 0), so every raw
+//   value is read before it is overwritten.
+//   chunk mode (a row of more blocks than a cluster holds): one launch a
+//   chunk of at most R steps, no exchange, `in` a copy of the body's raw
+//   rows that no launch writes; the seed row comes through device memory.
+// Shared memory: the line [2][pitch], then in cluster mode the exchange
+// buffer [2][2][H].
+template <typename T, bool SSE2, int COLS, bool WIDE>
 __global__ void __launch_bounds__(COLS >= 8 ? 1024 : 512, 1)
 pool_smooth_kernel(const typename Ops<T, SSE2>::acc* row0,
+                   const typename Ops<T, SSE2>::acc* in,
                    typename Ops<T, SSE2>::acc* body,
                    const typename Ops<T, SSE2>::acc* tail, long long row0_ms,
-                   long long body_ms, long long tail_ms, int n, int S) {
+                   long long in_ms, long long body_ms, long long tail_ms, int n, int S,
+                   int n_blk, int W_loc, int H, int R, int base, int steps, int pitch,
+                   int cluster_mode) {
   using O = Ops<T, SSE2>;
   using A = typename O::acc;
   constexpr int D = Prefetch<COLS>::kDepth;
@@ -86,73 +116,98 @@ pool_smooth_kernel(const typename Ops<T, SSE2>::acc* row0,
   static_assert(D % 2 == 0, "the line buffer alternates with the step parity");
   static_assert(kGrp > 0, "4-byte accumulators give word access");
   extern __shared__ __align__(16) unsigned char smem[];
-  const int pitch = line_pitch(S, COLS);
+  if constexpr (!WIDE) {
+    pitch = line_pitch(S, COLS);
+    base = 0;
+    steps = n;
+  }
   A* line = reinterpret_cast<A*>(smem);  // [2][pitch], column 0 at kPad
 
-  const int m = blockIdx.x;
+  const int m = WIDE ? blockIdx.x / n_blk : blockIdx.x;
+  const Span sp = WIDE ? span_of(blockIdx.x - m * n_blk, W_loc, H, S) : Span{0, S, 0, S};
   const int c0 = threadIdx.x * COLS;
-  const bool active = c0 < S;
-  const A* r0 = row0 + m * row0_ms;
-  A* bd = body + m * body_ms;
-  const A* tl = tail + m * tail_ms;
+  const bool active = c0 < sp.W_c;
+  A* bd = body + m * body_ms + sp.g0;
+  const A* src = WIDE ? in + m * in_ms + sp.g0 : bd;
+  const A* tl = tail + m * tail_ms + sp.g0;
+  const A* seed = base == 0 ? row0 + m * row0_ms + sp.g0 : bd + (long long)(base - 1) * S;
   // Word access to device memory where the group is whole and every row it
-  // touches starts aligned; else element access up to column S-1.
-  const bool vec = c0 + COLS <= S && (S * sizeof(A)) % kGrp == 0 &&
-                   ((reinterpret_cast<uintptr_t>(r0) | reinterpret_cast<uintptr_t>(bd) |
-                     reinterpret_cast<uintptr_t>(tl)) % kGrp) == 0;
+  // touches starts aligned; else element access up to the block's last
+  // column.
+  const bool vec = c0 + COLS <= sp.W_c && (S * sizeof(A)) % kGrp == 0 &&
+                   ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(bd) |
+                     reinterpret_cast<uintptr_t>(tl) | reinterpret_cast<uintptr_t>(seed)) %
+                    kGrp) == 0;
   auto input_row = [&](int r) -> const A* {
-    return r < n ? bd + (long long)r * S : tl;
+    return r < n ? src + (long long)r * S : tl;
   };
   auto gload = [&](const A* row, A (&x)[COLS]) {
     if (vec) {
       load_elems<A, COLS, kGrp>(row + c0, x);
     } else {
 #pragma unroll
-      for (int j = 0; j < COLS; ++j) x[j] = c0 + j < S ? row[c0 + j] : A(0);
+      for (int j = 0; j < COLS; ++j) x[j] = c0 + j < sp.W_c ? row[c0 + j] : A(0);
     }
   };
 
-  A h[COLS], cur[COLS], q[D][COLS];
-  gload(r0, h);   // the smoothed "row 0" seed
-  gload(bd, cur);  // input row 0
+  A h[1][COLS], cur[COLS], pf[D][COLS];
+  gload(seed, h[0]);             // the smoothed seed row
+  gload(input_row(base), cur);   // the step's first input row
 #pragma unroll
   for (int s = 1; s <= D; ++s)
-    if (s <= n) gload(input_row(s), q[s % D]);
+    if (s <= steps) gload(input_row(base + s), pf[s % D]);
+  const bool exchange = WIDE && cluster_mode && n_blk > 1;
+  if constexpr (WIDE) {
+    // No block overwrites a row before every block of the map has read the
+    // rows it loaded ahead.
+    if (exchange) cg::this_cluster().sync();
+  }
 
-  for (int t0 = 0; t0 < n; t0 += D) {
+  int n_exch = 0;
+  for (int t0 = 0; t0 < steps; t0 += D) {
 #pragma unroll
     for (int s = 0; s < D; ++s) {
       const int t = t0 + s;
-      if (t >= n) break;
+      if (t >= steps) break;
       A* buf = line + (s & 1) * pitch + kPad;  // t and s share parity: D is even
       const int slot = (s + 1) % D;
       // Vertical 3-sum at own columns; input row t+1 leaves its slot.
       if (active) {
         A v[COLS];
 #pragma unroll
-        for (int j = 0; j < COLS; ++j) v[j] = O::add(O::add(h[j], cur[j]), q[slot][j]);
-        store_group_padded<A, COLS>(buf, c0, S, v);
+        for (int j = 0; j < COLS; ++j) v[j] = O::add(O::add(h[0][j], cur[j]), pf[slot][j]);
+        store_group_padded<A, COLS>(buf, c0, sp.W_c, v);
       }
 #pragma unroll
-      for (int j = 0; j < COLS; ++j) cur[j] = q[slot][j];
+      for (int j = 0; j < COLS; ++j) cur[j] = pf[slot][j];
       // Refill the slot with input row t+1+D.  It is read before this
       // thread overwrites it (step t+1+D), at this thread's columns only.
-      if (t + 1 + D <= n) gload(input_row(t + 1 + D), q[slot]);
+      if (t + 1 + D <= steps) gload(input_row(base + t + 1 + D), pf[slot]);
       // One barrier: the other line buffer was last read in step t-1's box,
       // which every thread finished before reaching step t's barrier.
       __syncthreads();
       if (active) {
-        box_window<T, SSE2, COLS>(buf, c0, h);
-        A* out = bd + (long long)t * S;
-        if (vec) {
-          store_elems<A, COLS, kGrp>(out + c0, h);
+        box_window<T, SSE2, COLS>(buf, c0, h[0]);
+        A* out = bd + (long long)(base + t) * S;
+        if (vec && (!WIDE || (c0 >= sp.cl && c0 + COLS <= sp.cr))) {
+          store_elems<A, COLS, kGrp>(out + c0, h[0]);
         } else {
 #pragma unroll
           for (int j = 0; j < COLS; ++j)
-            if (c0 + j < S) out[c0 + j] = h[j];
+            if (c0 + j >= sp.cl && c0 + j < sp.cr) out[c0 + j] = h[0][j];
+        }
+      }
+      if constexpr (WIDE) {
+        if (exchange && (t + 1) % R == 0 && t + 1 < steps) {
+          exchange_halo<A, 1, COLS>(line + 2 * pitch + (n_exch & 1) * 2 * H, sp, H, c0, h);
+          ++n_exch;
         }
       }
     }
+  }
+  if constexpr (WIDE) {
+    // No block leaves while a neighbour may still read its shared memory.
+    if (exchange && n_exch > 0) cg::this_cluster().sync();
   }
 }
 
@@ -224,27 +279,54 @@ cudaError_t smooth(const void* row0, void* body, const void* tail,
                    long long row0_ms, long long body_ms, long long tail_ms,
                    int maps, int n, int S, int threads, cudaStream_t stream) {
   using A = typename Ops<T, SSE2>::acc;
-  auto kern = pool_smooth_kernel<T, SSE2, COLS>;
+  auto kern = pool_smooth_kernel<T, SSE2, COLS, false>;
   const int smem_bytes = smooth_smem_bytes<T, SSE2, COLS>(S);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return e;
   kern<<<maps, threads, smem_bytes, stream>>>(
-      static_cast<const A*>(row0), static_cast<A*>(body),
-      static_cast<const A*>(tail), row0_ms, body_ms, tail_ms, n, S);
+      static_cast<const A*>(row0), static_cast<const A*>(body), static_cast<A*>(body),
+      static_cast<const A*>(tail), row0_ms, body_ms, body_ms, tail_ms, n, S, 1, S, 0,
+      0, 0, n, 0, 0);
   return cudaGetLastError();
 }
 
 // Resident walk blocks an SM at this launch shape.
 template <typename T, bool SSE2, int COLS>
 cudaError_t smooth_occupancy(int S, int threads, int* blocks) {
-  auto kern = pool_smooth_kernel<T, SSE2, COLS>;
+  auto kern = pool_smooth_kernel<T, SSE2, COLS, false>;
   const int smem_bytes = smooth_smem_bytes<T, SSE2, COLS>(S);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads,
                                                        smem_bytes);
+}
+
+// The wide walk over `maps` maps, n_blk blocks each: a cluster of n_blk
+// blocks a map (cluster_mode 1) or a chunk of steps (0).  Returns the
+// cudaError_t of the launch, or kNoCluster; cudaErrorInvalidValue for a
+// cluster that exchanges less often than every D + 1 rows (see the kernel).
+template <typename T, bool SSE2, int COLS>
+int wide(const void* row0, const void* in, void* body, const void* tail,
+         long long row0_ms, long long in_ms, long long body_ms, long long tail_ms,
+         int maps, int n_blk, int n, int S, int W_loc, int H, int R, int base,
+         int steps, int pitch, int cluster_mode, int threads, int smem,
+         cudaStream_t stream) {
+  using A = typename Ops<T, SSE2>::acc;
+  if (cluster_mode && R > Prefetch<COLS>::kDepth + 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_ex(pool_smooth_kernel<T, SSE2, COLS, true>, maps * n_blk, threads, smem,
+                   cluster_mode ? n_blk : 1, stream, static_cast<const A*>(row0),
+                   static_cast<const A*>(in), static_cast<A*>(body),
+                   static_cast<const A*>(tail), row0_ms, in_ms, body_ms, tail_ms, n, S,
+                   n_blk, W_loc, H, R, base, steps, pitch, cluster_mode);
+}
+
+// The wide walk's build at this shape: out[4] as query_kernel (cluster.cuh).
+template <typename T, bool SSE2, int COLS>
+int wide_query(int threads, int smem, int cluster, int* out) {
+  return query_kernel(pool_smooth_kernel<T, SSE2, COLS, true>, threads, smem, cluster, out);
 }
 
 template <typename T, bool SSE2, int COLS>
@@ -307,6 +389,21 @@ cudaError_t smooth_any(int dtype, int sse2, int cols, const void* row0,
 cudaError_t smooth_occupancy_any(int dtype, int sse2, int cols, int S,
                                  int threads, int* blocks) {
   SNO_DISPATCH(smooth_occupancy, S, threads, blocks);
+}
+
+int wide_any(int dtype, int sse2, int cols, const void* row0, const void* in,
+             void* body, const void* tail, long long row0_ms, long long in_ms,
+             long long body_ms, long long tail_ms, int maps, int n_blk, int n, int S,
+             int W_loc, int H, int R, int base, int steps, int pitch, int cluster_mode,
+             int threads, int smem, cudaStream_t stream) {
+  SNO_DISPATCH(wide, row0, in, body, tail, row0_ms, in_ms, body_ms, tail_ms, maps,
+               n_blk, n, S, W_loc, H, R, base, steps, pitch, cluster_mode, threads,
+               smem, stream);
+}
+
+int wide_query_any(int dtype, int sse2, int cols, int threads, int smem, int cluster,
+                   int* out) {
+  SNO_DISPATCH(wide_query, threads, smem, cluster, out);
 }
 
 cudaError_t prepare_any(int dtype, int sse2, const void* kept, void* body,
@@ -377,6 +474,30 @@ int sno_pool_smooth_occupancy(int dtype, int sse2, int cols, int S,
                               int threads, int* blocks) {
   return static_cast<int>(smooth_occupancy_any(dtype, dtype == 2 ? 0 : sse2,
                                                cols, S, threads, blocks));
+}
+
+// The wide walk (K3, K6 and the batched walk past one block's columns) on
+// `maps` maps of a walk of n steps: row0 [maps, S], the input rows `in`
+// [maps, n, S] (== body in cluster mode), body [maps, n, S] smoothed in
+// place at steps base..base+steps-1, tail [maps, S], each with its map
+// stride.  Returns the cudaError_t of the launch, or -1 when no cluster of
+// n_blk blocks can be scheduled.
+int sno_pool_wide_launch(int dtype, int sse2, int cols, const void* row0, const void* in,
+                         void* body, const void* tail, long long row0_ms,
+                         long long in_ms, long long body_ms, long long tail_ms, int maps,
+                         int n_blk, int n, int S, int W_loc, int H, int R, int base,
+                         int steps, int pitch, int cluster_mode, int threads, int smem,
+                         void* stream) {
+  return wide_any(dtype, dtype == 2 ? 0 : sse2, cols, row0, in, body, tail, row0_ms,
+                  in_ms, body_ms, tail_ms, maps, n_blk, n, S, W_loc, H, R, base, steps,
+                  pitch, cluster_mode, threads, smem, static_cast<cudaStream_t>(stream));
+}
+
+// Registers, spill bytes and blocks a SM of the wide walk's build, and
+// clusters of `cluster` blocks resident at once (-1 for no cluster).
+int sno_pool_wide_query(int dtype, int sse2, int cols, int threads, int smem,
+                        int cluster, int* out) {
+  return wide_query_any(dtype, dtype == 2 ? 0 : sse2, cols, threads, smem, cluster, out);
 }
 
 // K7 prepare: kept rows r = 0..R (row r at kept + r*pitch_k elements, w

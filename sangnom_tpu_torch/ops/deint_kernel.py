@@ -7,6 +7,16 @@
 ``_interp_chunk``).  On a CPU tensor each wrapper runs its plain PyTorch
 version instead; on a CUDA tensor it launches the kernel or raises.
 
+One block walks a field, so the kernel takes at most ``MAX_COLS`` (8192)
+smoothed columns.  A wider field (`wide_plan`) runs as the width-sharded
+kernel K4 runs a field (``parallel.shard_kernel.full_pass``): the plane
+edge-padded to a width of k shards, ``k`` blocks of a field in one
+thread-block cluster (one launch a pass; past ``MAX_CLUSTER`` blocks, or
+where the card cannot schedule the cluster, one launch a chunk of rows),
+the output cropped back.  Its launches count in
+``shard_kernel.LAUNCHES["full"]``, not in ``LAUNCHES``; on a CPU tensor
+`_wide` runs K4's plain version with the same k, padding and crop.
+
 The kernel library (this kernel and the pool kernels of ``ops/pool_kernel``)
 is compiled with nvcc for sm_90a at first use, one nvcc per source in
 ``csrc/``, all started together, into ``sangnom_tpu_torch/_build/`` or the
@@ -39,7 +49,7 @@ from typing import NamedTuple
 import torch
 
 from sangnom_tpu_torch.core.fields import _split_plane
-from sangnom_tpu_torch.core.geometry import width_tiers
+from sangnom_tpu_torch.core.geometry import creep_bound, round_up, width_tiers
 from sangnom_tpu_torch.ops import reference
 from sangnom_tpu_torch.ops.primitives import KernelSpec
 from sangnom_tpu_torch.ops.sangnom import Offset, weave_assemble
@@ -74,6 +84,13 @@ _BUILD_LOCK = threading.RLock()
 # sizes must not interleave (the launch that meets the other's smaller limit
 # fails with "invalid argument").
 LAUNCH_LOCK = threading.Lock()
+
+# The most smoothed columns one block of the field kernel takes
+# (`launch_shape`); wider fields take the wide route (`wide_plan`).
+MAX_COLS = 8192
+# An H100's opt-in shared memory a block, for plans made away from the card.
+H100_SMEM = 232448
+_CLUSTER_OK: dict = {}  # (device, spec, k, K4 plan) -> a cluster fits the card
 
 # Storage dtype -> the C launcher's dtype code.
 _DTYPE_CODE = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
@@ -298,6 +315,122 @@ def launch_plan(w: int, S: int, elem: int, limit: int) -> LaunchPlan:
     raise ValueError(f"deint kernel: plane width {w} exceeds shared memory")
 
 
+class FieldPlan(NamedTuple):
+    """How a field pass runs on the card.  ``k`` 1: K1 over S smoothed
+    columns, ``W_loc`` = S, ``plan`` a `LaunchPlan`.  ``k`` > 1 (S past
+    ``MAX_COLS``): K4 over ``k`` shards of ``W_loc`` columns of the plane
+    edge-padded to ``width`` = k * W_loc, ``plan`` a
+    ``parallel.shard_kernel.Plan`` (its ``cluster``: one launch a pass, else
+    a launch a chunk of R rows)."""
+
+    k: int
+    W_loc: int
+    plan: tuple
+
+    @property
+    def width(self) -> int:
+        return self.k * self.W_loc
+
+
+def wide_plan(w: int, bufH: int, stride: int, spec: KernelSpec, limit: int,
+              cluster: bool | None = None) -> FieldPlan:
+    """The plan of a pass over fields of width ``w`` and ``bufH`` kept rows
+    at buffer ``stride``, under a block's shared-memory ``limit``.
+
+    S = ``width_tiers(...)[2]`` up to ``MAX_COLS``: K1's plan, as ever.
+    Past it: the least k whose K4 plan fits (every block, own columns and
+    halos, within ``shard_kernel.MAX_BLOCK`` columns), over the plane padded
+    to the stride itself where the clamp there is observable (stride <
+    ``creep_bound``; k then divides it) and else to the least multiple of k
+    at or past ``creep_bound``: as ``parallel.sharding._sharded_pad_width``
+    pads a 1 x k mesh, clamping there changes no output column.  The
+    cluster route up to ``MAX_CLUSTER`` blocks (``cluster`` None), the chunk
+    route beyond or with ``cluster`` False.  A pure function of the shapes."""
+    from sangnom_tpu_torch.parallel import shard_kernel as sk
+
+    elem = _storage_dtype(spec).itemsize
+    S = width_tiers(w, bufH, stride, spec)[2]
+    if S <= MAX_COLS:
+        return FieldPlan(1, S, launch_plan(w, S, elem, limit))
+    if bufH < 2:
+        raise ValueError(f"deint kernel: a plane wider than {MAX_COLS} columns needs "
+                         f"at least 2 kept rows, got {bufH}")
+    creep = creep_bound(w, bufH, spec)
+
+    def padded(k):
+        return stride if stride < creep else round_up(creep, k)
+
+    def cut(k):
+        width = padded(k)
+        if width % k:
+            return None
+        return k, width // k, sk.cluster_rows(k, width // k, bufH - 1)[1]
+
+    k = sk.least_split(cut, padded(1), k0=2)
+    use = cluster is not False and k <= sk.MAX_CLUSTER
+    W_loc = padded(k) // k
+    return FieldPlan(k, W_loc, sk.full_plan(k, W_loc, bufH, elem, limit, cluster=use))
+
+
+def _card_plan(w: int, bufH: int, stride: int, spec: KernelSpec,
+               device: torch.device) -> FieldPlan:
+    """`wide_plan` on the card: a cluster the card cannot schedule (no
+    cluster of k blocks resident, ``sno_shard_query``) takes the chunk
+    route, decided before any launch; the query's answer is kept for the
+    plan and the card."""
+    from sangnom_tpu_torch.parallel import shard_kernel as sk
+
+    limit = _max_smem_bytes(_load(), device)
+    fp = wide_plan(w, bufH, stride, spec, limit)
+    if fp.k == 1 or not fp.plan.cluster:
+        return fp
+    key = (device.index, spec, fp.k, fp.plan)
+    if key not in _CLUSTER_OK:
+        _CLUSTER_OK[key] = sk.occupancy("full", spec, fp.plan, fp.k, device)["clusters"] > 0
+    return fp if _CLUSTER_OK[key] else wide_plan(w, bufH, stride, spec, limit,
+                                                 cluster=False)
+
+
+def _wide(kept: torch.Tensor, offset, aaf, spec: KernelSpec, stride: int,
+          interlaced_tff: bool | None = None) -> torch.Tensor:
+    """The wide route, for fields past one block (S > ``MAX_COLS``):
+    ``kept`` [N, bufH, w] fields (an interlaced plane with
+    ``interlaced_tff``, split first) -> the woven plane (``offset`` 0, 1 or
+    per field) or, with ``offset`` None, the interpolated rows; K4 over
+    `wide_plan`'s k shards of the edge-padded plane, cropped to w.  On a
+    tensor off the card, K4's plain version (``parallel.fused_smooth``) with
+    the same k, padding and crop."""
+    from sangnom_tpu_torch.parallel import fused_smooth as fs
+    from sangnom_tpu_torch.parallel import shard_kernel as sk
+
+    if interlaced_tff is not None:
+        kept = _split_plane(kept, interlaced_tff)
+    N, bufH, w = kept.shape
+    on_card = kept.device.type == "cuda"
+    if on_card:
+        fp = _card_plan(w, bufH, stride, spec, kept.device)
+    else:
+        fp = wide_plan(w, bufH, stride, spec, H100_SMEM)
+    if fp.k == 1:
+        raise ValueError(f"deint kernel: {w} columns at stride {stride} take one block, "
+                         "not the wide route")
+    width = fp.width
+    if width > w:  # edge replication: taps past w read the edge pixel
+        pad = fs._signed(kept)[..., -1:].expand(N, bufH, width - w)
+        kept = torch.cat([fs._signed(kept), pad], dim=2).view(kept.dtype)
+    kept = kept.contiguous()
+    offs = None if offset is None else fs._offsets(offset, kept)
+    if on_card:
+        out = sk.full_pass(kept, offs, aaf, spec, fp.k, w, cluster=fp.plan.cluster)
+    else:
+        out = fs._fused_full(kept, aaf, spec, fp.k, w, None, offs)
+    return out if width == w else out[..., :w].contiguous()
+
+
+def _is_wide(w: int, bufH: int, stride: int, spec: KernelSpec) -> bool:
+    return width_tiers(w, bufH, stride, spec)[2] > MAX_COLS
+
+
 def _storage_dtype(spec: KernelSpec) -> torch.dtype:
     if spec.is_float:
         return torch.float32
@@ -397,6 +530,8 @@ def deinterlace_field_batch_fused(
             raise ValueError(f"deint kernel: interlaced height {H} is odd")
         n_fields, bufH = 2 * n_in, H // 2
         interlaced = 1 if interlaced_tff else 2
+    if n_fields and _is_wide(w, bufH, stride, spec):
+        return _wide(kept, offset, aaf, spec, stride, interlaced_tff)
     out = torch.empty((n_fields, 2 * bufH, w), dtype=kept.dtype,
                       device=kept.device)
     if out.numel():
@@ -415,6 +550,8 @@ def interpolate_field_batch(
     if kept.dim() != 3:
         raise ValueError(f"deint kernel: expected [N, H, W], got {tuple(kept.shape)}")
     N, bufH, w = kept.shape
+    if N and bufH >= 2 and _is_wide(w, bufH, stride, spec):
+        return _wide(kept, None, aaf, spec, stride)
     out = torch.empty((N, max(bufH - 1, 0), w), dtype=kept.dtype,
                       device=kept.device)
     if out.numel():

@@ -23,24 +23,39 @@ kernels of ``sangnom_tpu/ops/pool_carry.py``:
                      (the walk over 9K maps, one block a map) and
                      ``finalize_batch``.
 
+A pool wider than one block's columns (S > ``dk.MAX_COLS``, 8192) walks
+in the same kernel's wide instantiation instead (`walk_plan`): a map's row split over ``k``
+blocks, each owning ``W_loc`` columns plus a halo of ``H = 3R`` columns on
+each inner side, the ``k`` blocks of a map in one thread-block cluster
+that exchanges the carried row's halo through distributed shared memory
+every R rows; K3, K6 and the batched walk take it alike, in place, with
+the carry in its public layout.  Past 8 blocks, or where the
+card cannot schedule the cluster, the same kernel runs one launch a chunk
+of R rows on a copy of the raw rows.  `smooth_split_plain_` is the split
+walk's plain twin.
+
 Each wrapper checks shapes, dtypes and layout, then on a CPU tensor runs
 its plain PyTorch twin (the ``*_plain`` functions) and on a CUDA tensor
 launches its kernel or raises.  Kept rows may be strided (a field read in
 place from its frame); columns must be contiguous.  The kernels are built
 with the field kernel's library (``deint_kernel.build``).  ``LAUNCHES``
-counts launches per kernel; a K7 pass counts one "prepare", one "split3"
+counts launches per wrapper; a K7 pass counts one "prepare", one "split3"
 and one "finalize", and so does a batched pass, whatever its frame count.
+The wide walk counts under its wrapper's key ("smooth" for K3, "split3"
+for K6, K7's walk and the batched walk), one a launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from sangnom_tpu_torch.ops import deint_kernel as dk
-from sangnom_tpu_torch.ops.primitives import KernelSpec
+from sangnom_tpu_torch.ops.primitives import KernelSpec, smooth_writeback
 from sangnom_tpu_torch.ops.reference import (
+    _hbox7,
     error_maps_list,
     finalize_select_from_taps,
     pair_taps,
@@ -52,6 +67,14 @@ LAUNCHES = {"smooth": 0, "split3": 0, "prepare": 0, "finalize": 0}
 
 _MAPS = 9
 _bound = False
+# Rows between the wide walk's halo exchanges.  The walk reads a raw row at
+# its halo columns D rows ahead (csrc/pool.cu Prefetch::kDepth: 2 or 8)
+# while the neighbour smooths that row in place, so a cluster barrier must
+# fall between the two: R <= D + 1 for every build, which the launcher
+# checks.
+WIDE_ROWS = 3
+_NO_CLUSTER = -1  # the launcher's code for a cluster that cannot be scheduled
+_cluster_ok: dict = {}  # (device, dtype code, sse2, plan) -> clusters fit
 
 
 def reset_launches() -> None:
@@ -82,11 +105,18 @@ def _lib() -> ctypes.CDLL:
         lib.sno_pool_finalize_batch_launch.argtypes = [
             i, i, p, p, p, ll, ll, ll, i, i, i, i, i,  # ... kept_fs pitch interp_fs frames P R w S
             ctypes.c_double, p]  # aaf stream
+        lib.sno_pool_wide_launch.argtypes = [
+            i, i, i, p, p, p, p,  # dtype sse2 cols row0 in body tail
+            ll, ll, ll, ll,  # their map strides
+            i, i, i, i, i, i, i, i, i, i, i,  # maps k n S W_loc H R base steps pitch cluster
+            i, i, p]  # threads smem stream
+        lib.sno_pool_wide_query.argtypes = [i, i, i, i, i, i, ctypes.POINTER(i)]
         for fn in (lib.sno_pool_smooth_launch, lib.sno_pool_smooth_split3_launch,
                    lib.sno_pool_prepare_launch, lib.sno_pool_finalize_launch,
                    lib.sno_pool_smooth_batch_launch, lib.sno_pool_smooth_occupancy,
                    lib.sno_pool_prepare_batch_launch,
-                   lib.sno_pool_finalize_batch_launch):
+                   lib.sno_pool_finalize_batch_launch, lib.sno_pool_wide_launch,
+                   lib.sno_pool_wide_query):
             fn.restype = ctypes.c_int
         _bound = True
     return lib
@@ -141,12 +171,168 @@ def _check_kept(name: str, spec: KernelSpec, kept: torch.Tensor, P: int, S: int,
                          f"pool [9, {P + 1}, {S}] (needs 2 <= rows <= P)")
 
 
-def _common(spec: KernelSpec, S: int, device: torch.device):
-    """(dtype code, sse2 flag, cols, threads, stream) of a launch."""
-    cols, threads = dk.launch_shape(S)
+def _common(spec: KernelSpec, device: torch.device):
+    """(dtype code, sse2 flag, stream) of a launch."""
     code = dk._DTYPE_CODE[dk._storage_dtype(spec)]
     sse2 = int(spec.sse2 and not spec.is_float)
-    return code, sse2, cols, threads, torch.cuda.current_stream(device).cuda_stream
+    return code, sse2, torch.cuda.current_stream(device).cuda_stream
+
+
+# --- the walk's plan: one block a map, or a map's row over a cluster ---------
+
+class WalkPlan(NamedTuple):
+    """How the walk over a pool of stride S runs (see ``csrc/pool.cu``).
+
+    ``k`` blocks a map: 1 is the one-block walk (``pool_smooth_kernel``,
+    S <= ``dk.MAX_COLS``); above, its wide instantiation with shards of
+    ``W_loc`` columns (the last one narrower where W_loc does not divide
+    S) and a halo of ``H = 3R`` columns on each inner side.  ``cluster``:
+    the k blocks of a map in one cluster, one launch; else ``launches``
+    chunks of R steps.  ``pitch``: elements of a shared line row;
+    ``smem_bytes``: a block's dynamic shared memory."""
+
+    k: int
+    W_loc: int
+    H: int
+    R: int
+    cols: int
+    threads: int
+    cluster: bool
+    launches: int
+    pitch: int
+    smem_bytes: int
+
+
+def _line_pitch(W: int, cols: int) -> int:
+    """csrc/pool.cu line_pitch: a shared line row of W columns."""
+    return -(-(W + cols + 8) // 4) * 4
+
+
+def walk_plan(S: int, n_steps: int, cluster: bool | None = None) -> WalkPlan:
+    """The walk's plan for a pool of stride ``S`` over ``n_steps`` steps:
+    the one-block walk up to ``dk.MAX_COLS`` columns; past it the least
+    ``k`` whose blocks (own columns and halos) fit one block's columns,
+    on the cluster route up to ``shard_kernel.MAX_CLUSTER`` blocks
+    (``cluster`` None), else the chunk route."""
+    from sangnom_tpu_torch.parallel import shard_kernel as sk
+
+    if S <= dk.MAX_COLS:
+        cols, threads = dk.launch_shape(S)
+        return WalkPlan(1, S, 0, 0, cols, threads, False, 1, _line_pitch(S, cols),
+                        2 * _line_pitch(S, cols) * 4)
+    R = WIDE_ROWS
+    H = 3 * R
+
+    def cut(k):  # the last shard holds at least a halo
+        W_loc = -(-S // k)
+        return (k, W_loc, H) if S - (k - 1) * W_loc >= H else None
+
+    k = sk.least_split(cut, S, dk.MAX_COLS, k0=2)
+    W_loc = -(-S // k)
+    W_c = sk.block_width(k, W_loc, H)
+    cluster = cluster is not False and k <= sk.MAX_CLUSTER
+    cols, threads = dk.launch_shape(W_c)
+    pitch = _line_pitch(W_c, cols)
+    return WalkPlan(k, W_loc, H, R, cols, threads, cluster,
+                    1 if cluster else -(-n_steps // R), pitch,
+                    2 * pitch * 4 + (2 * 2 * H * 4 if cluster else 0))
+
+
+def _wide_query(lib, code: int, sse2: int, plan: WalkPlan, cluster: int,
+                device) -> list:
+    """The wide walk's build at ``plan``: registers, spill bytes, blocks a
+    SM and clusters of ``cluster`` blocks resident at once (-1: none)."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device), dk.LAUNCH_LOCK:
+        dk._check(lib, lib.sno_pool_wide_query(code, sse2, plan.cols, plan.threads,
+                                               plan.smem_bytes, cluster, out),
+                  "pool wide walk occupancy query")
+    return list(out)
+
+
+def card_walk_plan(spec: KernelSpec, S: int, n_steps: int, device) -> WalkPlan:
+    """`walk_plan` on the card: a cluster route the card cannot schedule
+    (no cluster of k blocks resident) becomes the chunk route, decided
+    before any launch."""
+    plan = walk_plan(S, n_steps)
+    if not plan.cluster:
+        return plan
+    lib = _lib()
+    code, sse2, _ = _common(spec, torch.device(device))
+    idx = torch.device(device).index
+    key = (idx, code, sse2, plan.cols, plan.threads, plan.smem_bytes, plan.k)
+    if key not in _cluster_ok:
+        _cluster_ok[key] = _wide_query(lib, code, sse2, plan, plan.k, device)[3] > 0
+    return plan if _cluster_ok[key] else walk_plan(S, n_steps, cluster=False)
+
+
+def _walk(name: str, key: str, spec: KernelSpec, row0: torch.Tensor, body: torch.Tensor,
+          tail: torch.Tensor, narrow) -> None:
+    """Launch the walk over ``body`` [maps, n, S] (rows contiguous, any map
+    stride) seeded by ``row0`` [maps, S] with ``tail`` [maps, S] as input
+    row n: ``narrow(lib, code, sse2, cols, threads, stream)`` launches the
+    one-block walk; past one block's columns the wide walk runs here.  Adds
+    one to ``LAUNCHES[key]`` a launch."""
+    maps, n, S = body.shape
+    device = body.device
+    plan = card_walk_plan(spec, S, n, device)
+    lib = _lib()
+    code, sse2, stream = _common(spec, device)
+    if plan.k == 1:
+        with torch.cuda.device(device), dk.LAUNCH_LOCK:
+            err = narrow(lib, code, sse2, plan.cols, plan.threads, stream)
+        dk._check(lib, err, f"{name} launch")
+        LAUNCHES[key] += 1
+        return
+    # the chunk route reads the raw rows from a copy: its launches have no
+    # barrier between a neighbour's in-place write and this block's read
+    src = body if plan.cluster else torch.empty(body.shape, dtype=body.dtype,
+                                                device=device).copy_(body)
+    chunks = [(0, n)] if plan.cluster else [
+        (base, min(plan.R, n - base)) for base in range(0, n, plan.R)]
+    with torch.cuda.device(device), dk.LAUNCH_LOCK:
+        for base, steps in chunks:
+            err = lib.sno_pool_wide_launch(
+                code, sse2, plan.cols, row0.data_ptr(), src.data_ptr(), body.data_ptr(),
+                tail.data_ptr(), row0.stride(0), src.stride(0), body.stride(0),
+                tail.stride(0), maps, plan.k, n, S, plan.W_loc, plan.H, plan.R, base,
+                steps, plan.pitch, int(plan.cluster), plan.threads, plan.smem_bytes,
+                stream)
+            if err == _NO_CLUSTER:
+                raise RuntimeError(f"{name}: a cluster of {plan.k} blocks cannot be "
+                                   "scheduled on this card")
+            dk._check(lib, err, f"{name} launch")
+            LAUNCHES[key] += 1
+
+
+def smooth_split_plain_(row0: torch.Tensor, body: torch.Tensor, tail: torch.Tensor,
+                        spec: KernelSpec, plan: WalkPlan) -> torch.Tensor:
+    """Plain twin of the wide walk with ``plan``'s geometry: ``body``
+    [maps, n, S] smoothed in place, seeded by ``row0`` [maps, S], ``tail``
+    [maps, S] as input row n.  Each of the k shards walks its own columns
+    and its halo with the box clamped at the shard's edges, writes its own
+    columns, and every R steps (the cluster route; each launch of R steps,
+    from the rows already written, on the chunk route) takes its halo from
+    its neighbours; the raw rows are read as they were before the walk.
+    Returns ``body``."""
+    maps, n, S = body.shape
+    k, W_loc, H, R = plan.k, plan.W_loc, plan.H, plan.R
+    spans = []
+    for q in range(k):
+        lo, hi = q * W_loc, min((q + 1) * W_loc, S)
+        g0, g1 = max(lo - H, 0), min(hi + H, S)
+        spans.append((g0, g1, lo - g0, hi - g0))
+    raw = torch.cat([body, tail[:, None]], dim=1).clone()  # input rows 0..n
+    hs = [row0[:, g0:g1].clone() for g0, g1, _, _ in spans]
+    for t in range(n):
+        if t and t % R == 0:  # the exchange: every column of the carried row exact
+            full = body[:, t - 1]
+            hs = [full[:, g0:g1].clone() for g0, g1, _, _ in spans]
+        for q, (g0, g1, cl, cr) in enumerate(spans):
+            line = (hs[q] + raw[:, t, g0:g1]) + raw[:, t + 1, g0:g1]
+            hs[q] = smooth_writeback(_hbox7(line), spec)
+            body[:, t, g0 + cl:g0 + cr] = hs[q][:, cl:cr]
+    return body
 
 
 # --- K3 --------------------------------------------------------------------
@@ -175,13 +361,9 @@ def smooth_pool_(pool: torch.Tensor, spec: KernelSpec) -> torch.Tensor:
     P, S = pool.shape[1] - 1, pool.shape[2]
     if P < 2:
         return pool
-    lib = _lib()
-    code, sse2, cols, threads, stream = _common(spec, S, pool.device)
-    with torch.cuda.device(pool.device), dk.LAUNCH_LOCK:
-        err = lib.sno_pool_smooth_launch(code, sse2, cols, pool.data_ptr(), P, S,
-                                         threads, stream)
-    dk._check(lib, err, f"{name} launch")
-    LAUNCHES["smooth"] += 1
+    _walk(name, "smooth", spec, pool[:, 0], pool[:, 1:P], pool[:, P],
+          lambda lib, code, sse2, cols, threads, stream: lib.sno_pool_smooth_launch(
+              code, sse2, cols, pool.data_ptr(), P, S, threads, stream))
     return pool
 
 
@@ -206,14 +388,10 @@ def smooth_split3_(row0: torch.Tensor, body: torch.Tensor, tail: torch.Tensor,
         return smooth_split3_plain_(row0, body, tail, spec)
     if P < 2:
         return body
-    lib = _lib()
-    code, sse2, cols, threads, stream = _common(spec, S, body.device)
-    with torch.cuda.device(body.device), dk.LAUNCH_LOCK:
-        err = lib.sno_pool_smooth_split3_launch(
-            code, sse2, cols, row0.data_ptr(), body.data_ptr(), tail.data_ptr(),
-            P, S, threads, stream)
-    dk._check(lib, err, f"{name} launch")
-    LAUNCHES["split3"] += 1
+    _walk(name, "split3", spec, row0, body, tail,
+          lambda lib, code, sse2, cols, threads, stream: lib.sno_pool_smooth_split3_launch(
+              code, sse2, cols, row0.data_ptr(), body.data_ptr(), tail.data_ptr(), P, S,
+              threads, stream))
     return body
 
 
@@ -241,7 +419,7 @@ def prepare_pool_(kept: torch.Tensor, body: torch.Tensor, spec: KernelSpec) -> t
         return prepare_pool_plain_(kept, body, spec)
     bufH_p, w = kept.shape
     lib = _lib()
-    code, sse2, _, _, stream = _common(spec, S, kept.device)
+    code, sse2, stream = _common(spec, kept.device)
     with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
         err = lib.sno_pool_prepare_launch(code, sse2, kept.data_ptr(), body.data_ptr(),
                                           kept.stride(0), P, bufH_p - 1, w, S, stream)
@@ -272,7 +450,7 @@ def finalize_pool(kept: torch.Tensor, body: torch.Tensor, aaf,
     bufH_p, w = kept.shape
     out = torch.empty((bufH_p - 1, w), dtype=kept.dtype, device=kept.device)
     lib = _lib()
-    code, sse2, _, _, stream = _common(spec, S, kept.device)
+    code, sse2, stream = _common(spec, kept.device)
     with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
         err = lib.sno_pool_finalize_launch(
             code, sse2, kept.data_ptr(), body.data_ptr(), out.data_ptr(),
@@ -352,29 +530,46 @@ def smooth_batch_(row0: torch.Tensor, body: torch.Tensor, tail: torch.Tensor,
         return smooth_batch_plain_(row0, body, tail, spec)
     if P < 2:
         return body
-    lib = _lib()
-    code, sse2, cols, threads, stream = _common(spec, S, body.device)
-    with torch.cuda.device(body.device), dk.LAUNCH_LOCK:
-        err = lib.sno_pool_smooth_batch_launch(
-            code, sse2, cols, row0.data_ptr(), body.data_ptr(), tail.data_ptr(),
-            K * _MAPS, P, S, threads, stream)
-    dk._check(lib, err, f"{name} launch")
-    LAUNCHES["split3"] += 1
+    _walk(name, "split3", spec, row0.view(K * _MAPS, S), body.view(K * _MAPS, P - 1, S),
+          tail.view(K * _MAPS, S),
+          lambda lib, code, sse2, cols, threads, stream: lib.sno_pool_smooth_batch_launch(
+              code, sse2, cols, row0.data_ptr(), body.data_ptr(), tail.data_ptr(),
+              K * _MAPS, P, S, threads, stream))
     return body
 
 
 def walk_occupancy(spec: KernelSpec, S: int, device="cuda") -> tuple[int, int]:
     """(threads a block, resident blocks an SM) of the pool walk at stride
     ``S`` on a card: a batched walk of 9K blocks runs in
-    ceil(9K / (blocks x SMs)) waves."""
+    ceil(9K / (blocks x SMs)) waves; past one block's columns, the wide
+    walk's blocks, k a map (`walk_clusters`)."""
     lib = _lib()
-    code, sse2, cols, threads, _ = _common(spec, S, torch.device(device))
+    plan = walk_plan(S, 1)
+    code, sse2, _ = _common(spec, torch.device(device))
+    if plan.k > 1:
+        return plan.threads, _wide_query(lib, code, sse2, plan, 1, device)[2]
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):
-        dk._check(lib, lib.sno_pool_smooth_occupancy(code, sse2, cols, S, threads,
-                                                     ctypes.byref(blocks)),
+        dk._check(lib, lib.sno_pool_smooth_occupancy(code, sse2, plan.cols, S,
+                                                     plan.threads, ctypes.byref(blocks)),
                   "pool walk occupancy query")
-    return threads, blocks.value
+    return plan.threads, blocks.value
+
+
+def walk_clusters(spec: KernelSpec, S: int, n_steps: int, device="cuda") -> dict:
+    """The wide walk's geometry on a card at stride ``S``: the plan's k,
+    route and shared memory, and the build's registers, spill bytes,
+    blocks a SM and clusters of k blocks resident at once (a batched walk
+    of 9K maps runs in ceil(9K / clusters) waves)."""
+    lib = _lib()
+    plan = card_walk_plan(spec, S, n_steps, device)
+    code, sse2, _ = _common(spec, torch.device(device))
+    regs, spill, per_sm, clusters = _wide_query(lib, code, sse2, plan,
+                                                plan.k if plan.cluster else 1, device)
+    return {"k": plan.k, "cluster": plan.cluster, "launches": plan.launches,
+            "threads": plan.threads, "cols": plan.cols, "smem_bytes": plan.smem_bytes,
+            "registers": regs, "spill_bytes": spill, "blocks_per_sm": per_sm,
+            "clusters": clusters}
 
 
 def prepare_batch_plain_(kept: torch.Tensor, body: torch.Tensor,
@@ -402,7 +597,7 @@ def prepare_batch_(kept: torch.Tensor, body: torch.Tensor, spec: KernelSpec) -> 
     K, bufH_p, w = kept.shape
     P, S = body.shape[2] + 1, body.shape[3]
     lib = _lib()
-    code, sse2, _, _, stream = _common(spec, S, kept.device)
+    code, sse2, stream = _common(spec, kept.device)
     with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
         err = lib.sno_pool_prepare_batch_launch(
             code, sse2, kept.data_ptr(), body.data_ptr(), kept.stride(0),
@@ -437,7 +632,7 @@ def finalize_batch(kept: torch.Tensor, body: torch.Tensor, aaf,
     P, S = body.shape[2] + 1, body.shape[3]
     out = torch.empty((K, bufH_p - 1, w), dtype=kept.dtype, device=kept.device)
     lib = _lib()
-    code, sse2, _, _, stream = _common(spec, S, kept.device)
+    code, sse2, stream = _common(spec, kept.device)
     with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
         err = lib.sno_pool_finalize_batch_launch(
             code, sse2, kept.data_ptr(), body.data_ptr(), out.data_ptr(),

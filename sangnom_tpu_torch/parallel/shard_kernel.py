@@ -42,6 +42,8 @@ LAUNCHES = {"full": 0, "smooth": 0, "prepare": 0, "finalize": 0}
 
 # The most blocks a cluster takes (the portable limit on sm_90).
 MAX_CLUSTER = 8
+# The most columns a block takes, its halos included (`shard_shape`).
+MAX_BLOCK = 8184
 # Rows between halo exchanges when the caller gives none: the fastest R of
 # the 1x4 1080 passes on an H100 (tools/shard_ab.py; PERF.md section 6).
 CLUSTER_ROWS = 4
@@ -73,10 +75,40 @@ def shard_shape(W_c: int) -> tuple[int, int]:
     8184, and 8 / cols threads more: K4 fetches a block's kept rows with 4
     more columns at each end, thread t the cols columns from t*cols - 4;
     threads a multiple of 32, at most 512 (1 and 4 columns) or 1024 (8)."""
-    for cols, max_cols in ((1, 64), (4, 2040), (8, 8184)):
+    for cols, max_cols in ((1, 64), (4, 2040), (8, MAX_BLOCK)):
         if W_c <= max_cols:
             return cols, _round_up(-(-W_c // cols) + 8 // cols, 32)
     raise ValueError(f"sharded kernel: {W_c} columns in a block (at most 8184)")
+
+
+def least_split(cut, width: int, cap: int = MAX_BLOCK, k0: int = 1) -> int:
+    """The least k >= ``k0`` that cuts a row of ``width`` columns into
+    blocks of at most ``cap`` columns: ``cut(k)`` gives the cut's (n, W_loc,
+    H), n blocks of W_loc own columns with a halo of H columns on each inner
+    side, or None where k does not cut the row; it fits where
+    `block_width` (n, W_loc, H) <= ``cap``."""
+    for k in range(k0, width + 1):
+        c = cut(k)
+        if c is not None and block_width(*c) <= cap:
+            return k
+    raise ValueError(f"width {width}: no split into blocks of at most {cap} columns")
+
+
+def split_count(width: int, n_space: int, halo: int) -> int:
+    """The least k that cuts a row of ``width`` columns, over ``n_space``
+    shards, into ``n_space * k`` equal blocks that each fit one block of
+    the kernels (``MAX_BLOCK`` columns with a halo of ``halo`` columns on
+    each inner side): 1 where the shards fit as they are.  The routes take
+    the ``n_space * k`` blocks as their shards, so the sub-split changes no
+    output column."""
+    if width % n_space:
+        raise ValueError(f"width {width} does not divide across {n_space} shards")
+
+    def cut(k):
+        n = n_space * k
+        return None if width % n else (n, width // n, halo)
+
+    return least_split(cut, width)
 
 
 def cluster_rows(n_space: int, W_loc: int, n_steps: int,
@@ -252,11 +284,12 @@ def _launch_full(lib, plan: Plan, spec: KernelSpec, kept, out, weave_args, scrat
 
 
 def full_pass(kept: torch.Tensor, offsets, aaf, spec: KernelSpec, n_space: int,
-              w_glob: int, chunk_rows: int | None = None) -> torch.Tensor:
+              w_glob: int, chunk_rows: int | None = None,
+              cluster: bool | None = None) -> torch.Tensor:
     """K4 over a plane pass: ``kept`` [N, bufH, S] (storage dtype, contiguous,
     S = n_space * W_loc) -> the woven plane [N, 2*bufH, S] (``offsets`` 0, 1
     or a per-field [N] tensor) or, with ``offsets`` None, the interpolated
-    rows [N, bufH-1, S]."""
+    rows [N, bufH-1, S].  ``cluster``: the route, as `full_plan` takes it."""
     name = "sharded fused kernel"
     N, bufH, S = kept.shape
     W_loc = S // n_space
@@ -268,7 +301,7 @@ def full_pass(kept: torch.Tensor, offsets, aaf, spec: KernelSpec, n_space: int,
                       device=kept.device)
     lib = _lib()
     plan = full_plan(n_space, W_loc, bufH, kept.element_size(), dk._max_smem_bytes(lib, kept.device),
-                     chunk_rows)
+                     chunk_rows, cluster)
     scratch = _full_scratch(plan, N * n_space, spec, kept)
     carry = [None, None]  # the chunk route's carried row, [N, 9, S] a launch
     if not plan.cluster:

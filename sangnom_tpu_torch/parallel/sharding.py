@@ -14,7 +14,12 @@ clusters, or the scan); a row whose slots name different devices of this
 process, ``default_mesh(1, 2)`` on two cards, runs the route across devices
 (parallel.cross_device: per-slot launches, halo copies between devices).
 Rows may mix the two.  A ``space`` row never spans processes
-(parallel.multihost).
+(parallel.multihost).  A shard wider than one block of the kernels (K4,
+K5, the slabs across devices: ``shard_kernel.MAX_BLOCK`` columns with its
+halo) splits into k blocks (`_sub_split`): the row runs ``n_space * k``
+shards, each slot's device repeated k times, on one device as a cluster
+of ``n_space * k`` blocks a field, across devices as ``n_space * k``
+slots.
 """
 
 from __future__ import annotations
@@ -118,6 +123,30 @@ def _validate_width_sharding(stride: int, n_space: int) -> None:
             f"local width {stride // n_space} < 3: too many 'space' "
             f"shards for stride {stride}"
         )
+
+
+def _sub_split(stride: int, n_space: int, smooth: str, rows, across: bool,
+               chunk_rows: Optional[int]) -> int:
+    """The k that cuts each of the ``n_space`` shards into k blocks of the
+    kernels (``shard_kernel.split_count`` over the stride, which bounds
+    every plane's padded width): the kernel arms' block takes its own
+    columns and its halo, 3R on one device (the cluster route's R), 3R+6
+    (K4) or 3R+3 (the K5 route) a slab across devices; the scan arm has no
+    block, so 1.  Rows on one device and across devices take the larger."""
+    from sangnom_tpu_torch.parallel import shard_kernel as sk
+
+    if smooth == "scan":
+        return 1
+    halos = []
+    for slots in rows:
+        if across or any(s != slots[0] for s in slots):
+            if smooth == "chunked":
+                halos.append(3 * (chunk_rows or sk.SLOT_ROWS_K5) + 3)
+            else:
+                halos.append(3 * (chunk_rows or sk.SLOT_ROWS) + 6)
+        else:
+            halos.append(3 * sk.CLUSTER_ROWS)
+    return sk.split_count(stride, n_space, max(halos))
 
 
 def _row_devices(mesh: Mesh, data_axis: str, space_axis: Optional[str]):
@@ -239,6 +268,34 @@ def _sharded(clip: Clip, mesh: Mesh, order: int = 1, aa: int = 48, aac: int = 0,
     stride = buffer_stride_elems(clip.width, fmt.component_size)
     if space_axis:
         _validate_width_sharding(stride, n_space)
+        # opt=0 keeps the per-row-exchange scan (the parity target); opt=1
+        # the fused K4 kernel; auto: K4 on CUDA, the scan elsewhere
+        if smooth is None:
+            if opt == 0:
+                smooth = "scan"
+            elif opt == 1:
+                smooth = "fused"
+            else:
+                smooth = "fused" if on_cuda else "scan"
+        elif smooth not in ("scan", "chunked", "fused", "fused_noweave"):
+            # a typo'd name would otherwise fall through every backend
+            # match and silently run the scan arm
+            raise ValueError(
+                f"smooth={smooth!r}: expected one of 'scan', 'chunked', "
+                "'fused', 'fused_noweave'."
+            )
+        # shards wider than a block of the kernels split into k blocks each:
+        # n_space * k shards throughout, each slot's device repeated k times
+        k = _sub_split(stride, n_space, smooth, rows, across, chunk_rows)
+        n_space *= k
+        rows = [[d for d in slots for _ in range(k)] for slots in rows]
+    elif smooth is not None:
+        # smooth selects among WIDTH-sharded backends; ignoring it on a
+        # data-only mesh would let an A/B harness measure the wrong arm
+        raise ValueError(
+            f"smooth={smooth!r} requires space_axis (width sharding); "
+            "data-parallel shards run the per-shard backend picked by opt."
+        )
 
     N = clip.num_frames
     pad = (-N) % n_data
@@ -267,30 +324,7 @@ def _sharded(clip: Clip, mesh: Mesh, order: int = 1, aa: int = 48, aac: int = 0,
         parity = np.concatenate([parity, np.zeros(pad, dtype=bool)])
 
     if space_axis:
-        # opt=0 keeps the per-row-exchange scan (the parity target); opt=1
-        # the fused K4 kernel; auto: K4 on CUDA, the scan elsewhere
-        if smooth is None:
-            if opt == 0:
-                smooth = "scan"
-            elif opt == 1:
-                smooth = "fused"
-            else:
-                smooth = "fused" if on_cuda else "scan"
-        elif smooth not in ("scan", "chunked", "fused", "fused_noweave"):
-            # a typo'd name would otherwise fall through every backend
-            # match and silently run the scan arm
-            raise ValueError(
-                f"smooth={smooth!r}: expected one of 'scan', 'chunked', "
-                "'fused', 'fused_noweave'."
-            )
         one_device = _sharded_interp(smooth, n_space)
-    elif smooth is not None:
-        # smooth selects among WIDTH-sharded backends; ignoring it on a
-        # data-only mesh would let an A/B harness measure the wrong arm
-        raise ValueError(
-            f"smooth={smooth!r} requires space_axis (width sharding); "
-            "data-parallel shards run the per-shard backend picked by opt."
-        )
 
     per = (N + pad) // n_data
     outs = []
