@@ -547,8 +547,8 @@ def profile_call(fn, wall_ms: float, what: str, card: str,
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    # kernels only: the port's own named ranges (utils.profiling.stage_scope)
-    # also appear on the device timeline, spanning their kernels
+    # kernels only: the port's own spans (utils.profiling.span), where they
+    # are on, also appear on the device timeline, spanning their kernels
     rows = [(e.key, e.count, e.self_device_time_total / 1e3)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and not e.key.startswith("sangnom/")]

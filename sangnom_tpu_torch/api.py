@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from sangnom_tpu_torch.core.clip import Clip
 from sangnom_tpu_torch.ops.sangnom import sangnom2_op
+from sangnom_tpu_torch.utils.profiling import CALL, span
 
 
 class SangNomError(ValueError):
@@ -102,12 +103,19 @@ def sangnom2(
     order; composable with ``numerics``.
     """
     del threads
-    _validate("SangNom2", clip, order, aa, aac, opt)
-    _validate_numerics("SangNom2", numerics)
-    return sangnom2_op(
-        clip, order=order, aa=aa, aac=aac, dh=dh, luma=luma, chroma=chroma,
-        opt=opt, pool_compat=pool_compat, numerics=numerics,
-    )
+    with span(CALL) as sp:
+        if sp:
+            sp.set(entry="sangnom2", path="pool" if pool_compat else "main",
+                   frames_in=clip.num_frames)
+        _validate("SangNom2", clip, order, aa, aac, opt)
+        _validate_numerics("SangNom2", numerics)
+        out = sangnom2_op(
+            clip, order=order, aa=aa, aac=aac, dh=dh, luma=luma, chroma=chroma,
+            opt=opt, pool_compat=pool_compat, numerics=numerics,
+        )
+        if sp:
+            sp.set(frames_out=out.num_frames)
+    return out
 
 
 # Legacy order remap: 0=keep-bottom, 1=keep-top, 2=double-rate
@@ -118,11 +126,18 @@ _LEGACY_ORDER_REMAP = (2, 1, 0)
 def sangnom(clip: Clip, order: int = 1, aa: int = 48, opt: int = -1,
             pool_compat: bool = False, numerics: str = "c") -> Clip:
     """Legacy SangNom wrapper (the documented surface)."""
-    _validate("SangNom", clip, order, aa, 0, opt)
-    _validate_numerics("SangNom", numerics)
-    new_order = _LEGACY_ORDER_REMAP[order] if order != 1 else 1
-    return sangnom2_op(clip, order=new_order, aa=aa, aac=0, opt=opt,
-                       pool_compat=pool_compat, numerics=numerics)
+    with span(CALL) as sp:
+        if sp:
+            sp.set(entry="sangnom", path="pool" if pool_compat else "main",
+                   frames_in=clip.num_frames)
+        _validate("SangNom", clip, order, aa, 0, opt)
+        _validate_numerics("SangNom", numerics)
+        new_order = _LEGACY_ORDER_REMAP[order] if order != 1 else 1
+        out = sangnom2_op(clip, order=new_order, aa=aa, aac=0, opt=opt,
+                          pool_compat=pool_compat, numerics=numerics)
+        if sp:
+            sp.set(frames_out=out.num_frames)
+    return out
 
 
 class SangNom2Filter:

@@ -19,6 +19,7 @@ Reads/writes YUV4MPEG2 on files or stdin/stdout ("-").  The filter runs on
 from __future__ import annotations
 
 import argparse
+import itertools
 import math
 import os
 import sys
@@ -29,6 +30,8 @@ import torch
 
 from sangnom_tpu_torch import __version__, sangnom, sangnom2
 from sangnom_tpu_torch.io import iter_y4m, read_y4m, write_y4m, write_y4m_frames
+from sangnom_tpu_torch.utils.profiling import (
+    FILTER, WAIT_INPUT, WAIT_OUTPUT, WAIT_WRITER, span)
 
 # Output frames the script verb fetches and writes at a time (the AviSynth
 # model filter's default batch, so each write follows one filter window).
@@ -311,8 +314,9 @@ def _prefetch_windows(it, depth: int = 2):
     threading.Thread(target=_loop, name="sangnom-reader",
                      daemon=True).start()
     try:
-        while True:
-            x = q.get()
+        for k in itertools.count():
+            with span(WAIT_INPUT, call=k):
+                x = q.get()
             if x is done:
                 if err:
                     raise err[0]
@@ -370,7 +374,7 @@ def _run_windowed(src, dst, args, fps, t0) -> int:
         )
         return out
 
-    def emit(out_clip, in_props):
+    def emit(out_clip, in_props, k):
         f = fps
         if f is None:
             f = in_props.get("y4m_fps", (25, 1))
@@ -384,9 +388,9 @@ def _run_windowed(src, dst, args, fps, t0) -> int:
             else:
                 state["fh"] = dst
             ilace = _out_interlace(args, out_clip.num_planes, in_props)
-            write_y4m(state["fh"], out_clip, fps=f, interlace=ilace)
+            write_y4m(state["fh"], out_clip, fps=f, interlace=ilace, window=k)
         else:
-            write_y4m_frames(state["fh"], out_clip)
+            write_y4m_frames(state["fh"], out_clip, window=k)
         state["out"] += out_clip.num_frames
         state["shape"] = (out_clip.width, out_clip.height)
 
@@ -408,8 +412,9 @@ def _run_windowed(src, dst, args, fps, t0) -> int:
 
         def _writer_loop():
             drain = False
-            while True:
-                item = wq.get()
+            for k in itertools.count():
+                with span(WAIT_OUTPUT, call=k):
+                    item = wq.get()
                 if item is None:
                     return
                 if drain:
@@ -425,13 +430,18 @@ def _run_windowed(src, dst, args, fps, t0) -> int:
         )
         wthread.start()
 
-    def submit(out_clip, in_props):
+    def submit(out_clip, in_props, k):
         if wq is None:
-            emit(out_clip, in_props)
+            emit(out_clip, in_props, k)
             return
         if emit_err:
             raise emit_err[0]
-        wq.put((out_clip, in_props))
+        with span(WAIT_WRITER, call=k):
+            wq.put((out_clip, in_props, k))
+
+    def filtered(clip, k, frames):
+        with span(FILTER, call=k, window=k, frames=frames):
+            return fone(clip)
 
     pending = None
     inflight = None  # one-window software pipeline (see below)
@@ -441,27 +451,28 @@ def _run_windowed(src, dst, args, fps, t0) -> int:
         # third pipeline stage: parse+upload on a reader thread
         windows = _prefetch_windows(windows)
     try:
-        for w in windows:
+        for k, w in enumerate(windows):
             w = _override_tff(w, args)
             state["in"] += w.num_frames
             if args.bob:
                 if pending is not None:
                     feed = Clip.concat(pending, w[0:1])  # 1-frame lookahead
-                    out = fone(feed)
-                    submit(out[0 : 2 * pending.num_frames], pending.props)
+                    out = filtered(feed, k - 1, pending.num_frames)
+                    submit(out[0 : 2 * pending.num_frames], pending.props, k - 1)
                 pending = w
             else:
                 # CUDA launches are asynchronous: launch window k, then let
                 # the NEXT window's host-side y4m parse overlap the device
                 # compute, and only then fetch/emit window k.  Same emission
                 # order (byte-identical output), one extra window in flight.
-                out = fone(w)
+                out = filtered(w, k, w.num_frames)
                 if inflight is not None:
                     submit(*inflight)
-                inflight = (out, w.props)
+                inflight = (out, w.props, k)
         if args.bob and pending is not None:
-            # final window: the degenerate last pairing, as unwindowed
-            submit(fone(pending), pending.props)
+            # final window (k, the last one's index): the degenerate last
+            # pairing, as unwindowed
+            submit(filtered(pending, k, pending.num_frames), pending.props, k)
         if inflight is not None:
             submit(*inflight)
         if wthread is not None:

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from sangnom_tpu_torch.core.clip import Clip, where_storage
+from sangnom_tpu_torch.utils.profiling import CALL, span
 
 
 def _split_plane(p: torch.Tensor, tff: bool) -> torch.Tensor:
@@ -109,6 +110,19 @@ def bob(clip: Clip, aa: int = 48, aac: int = 0, luma: bool = True,
     is off, an alpha plane, or pool_compat needs the discarded field's data
     and takes the explicit pipeline.
     """
+    with span(CALL) as sp:
+        if sp:
+            sp.set(entry="bob", path="pool" if pool_compat else "main",
+                   frames_in=clip.num_frames)
+        out = _bob(clip, aa, aac, luma, chroma, opt, tff, pool_compat, numerics)
+        if sp:
+            sp.set(frames_out=out.num_frames)
+    return out
+
+
+def _bob(clip: Clip, aa: int, aac: int, luma: bool, chroma: bool, opt: int,
+         tff: bool | None, pool_compat: bool, numerics: str) -> Clip:
+    """`bob`'s body, inside its call span."""
     from sangnom_tpu_torch.api import _validate, _validate_numerics, sangnom2
 
     tff_r = clip.tff if tff is None else tff

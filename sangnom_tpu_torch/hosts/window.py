@@ -43,6 +43,7 @@ import torch
 from sangnom_tpu_torch.api import SangNomError, register_plugin_functions
 from sangnom_tpu_torch.core.clip import Clip
 from sangnom_tpu_torch.core.formats import get_format
+from sangnom_tpu_torch.utils.profiling import HOST_FETCH, WINDOW, WINDOW_WAIT, count, span
 
 # The framework's own host-agnostic function table (the analogue of the
 # host's function registry the reference fills at plugin load).
@@ -186,7 +187,9 @@ class WindowRunner:
         threading.Thread(target=fetch_range, name="sangnom-prefetch",
                          daemon=True).start()
         timeout = fetch_timeout()
-        if not done.wait(timeout):
+        with span(HOST_FETCH, start=start, frames=end - start):
+            fetched = done.wait(timeout)
+        if not fetched:
             raise SangNomError(
                 "SangNom2: pool_compat random-access fetch timed out "
                 f"after {timeout:.0f}s — the host could not serve the "
@@ -206,14 +209,26 @@ class WindowRunner:
         only on a cache miss — cache hits (batch-1 of every batch
         sequential requests) skip them entirely."""
         start = (n // self.batch) * self.batch
-        if self.pool_compat:
-            return self._get_pool(n, start, window_frames_fn)
-        return self._get_plain(n, start, window_frames_fn)
+        with span(WINDOW, call=start, start=start,
+                  frames=min(self.batch, self.num_frames - start)):
+            if self.pool_compat:
+                return self._get_pool(n, start, window_frames_fn)
+            return self._get_plain(n, start, window_frames_fn)
+
+    def _hit(self, start: int, n: int) -> list[np.ndarray]:
+        """Frame ``n`` of the cached window at ``start``, counted as a hit
+        (the caller holds ``_lock``)."""
+        count("window_hits")
+        return self._slice(start, n)
+
+    def _run_miss(self, frames: list) -> list[np.ndarray]:
+        count("window_misses")
+        return self._run_window(frames)
 
     def _get_plain(self, n: int, start: int, window_frames_fn):
         with self._lock:
             if start in self._cache:
-                return self._slice(start, n)
+                return self._hit(start, n)
             ev = self._inflight.get(start)
             if ev is None:
                 ev = self._inflight[start] = threading.Event()
@@ -223,16 +238,17 @@ class WindowRunner:
         if not owner:
             # the owner depends only on the device, never on the host —
             # waiting here cannot deadlock the worker pool
-            ev.wait()
+            with span(WINDOW_WAIT):
+                ev.wait()
             with self._lock:
                 if start in self._cache:
-                    return self._slice(start, n)
+                    return self._hit(start, n)
             # evicted between set() and our wake: recompute from our own
             # prefetched frames (never re-enter the host)
-            outs = self._run_window(window_frames_fn())
+            outs = self._run_miss(window_frames_fn())
             return [p[n - start] for p in outs]
         try:
-            outs = self._run_window(window_frames_fn())  # no lock held
+            outs = self._run_miss(window_frames_fn())  # no lock held
             with self._lock:
                 self._store(start, outs)
         finally:
@@ -254,7 +270,7 @@ class WindowRunner:
         requester at all — a genuine seek."""
         with self._lock:
             if start in self._cache:
-                return self._slice(start, n)
+                return self._hit(start, n)
         with self._cond:
             self._active[start] = self._active.get(start, 0) + 1
             self._cond.notify_all()  # min(active) may have changed
@@ -273,7 +289,7 @@ class WindowRunner:
             while True:
                 with self._lock:
                     if start in self._cache:
-                        return self._slice(start, n)
+                        return self._hit(start, n)
                 if not self._chain_busy:
                     if start == self._pool_next:
                         break  # my turn: advance on my prefetched frames
@@ -293,7 +309,8 @@ class WindowRunner:
                 # chain busy, or an earlier active request will take the
                 # turn first: wait (bounded re-check; progress guaranteed
                 # — min(active) is always eligible once the chain idles)
-                self._cond.wait(timeout=0.5)
+                with span(WINDOW_WAIT):
+                    self._cond.wait(timeout=0.5)
             self._chain_busy = True
             if restart:
                 self._pool_state, self._pool_next = None, 0
@@ -302,7 +319,7 @@ class WindowRunner:
             while s <= start:
                 frames = (window_frames_fn() if s == start
                           else self._fetch_off_worker(s))
-                outs = self._run_window(frames)  # threads _pool_state
+                outs = self._run_miss(frames)  # threads _pool_state
                 with self._lock:
                     self._store(s, outs)
                 with self._cond:

@@ -17,6 +17,8 @@ import torch
 from sangnom_tpu_torch.core.clip import Clip
 from sangnom_tpu_torch.core.formats import get_format
 from sangnom_tpu_torch.io.common import _open, read_frames_chunked
+from sangnom_tpu_torch.utils.profiling import (
+    DOWNLOAD, PARSE, SERIALIZE, UPLOAD, WRITE, count, span)
 
 _COLORSPACE_TO_FORMAT = {
     "mono": "GRAY8",
@@ -110,6 +112,28 @@ def _read_frame_block(fh, info, max_frames):
     )
 
 
+def _read_window(fh, info, max_frames, device, window: int | None = None):
+    """Parse up to ``max_frames`` frames and put them on ``device``: a Clip,
+    or None at the stream's end.  Its spans carry ``window`` as their call
+    id."""
+    with span(PARSE, call=window) as sp:
+        planes = _read_frame_block(fh, info, max_frames)
+        if sp and planes:
+            n = planes[0].shape[0]
+            sp.set(frames=n, bytes=n * info["frame_bytes"])
+            count("frames_in", n)
+            count("bytes_read", n * info["frame_bytes"])
+    if not planes:
+        return None
+    with span(UPLOAD, call=window) as sp:
+        if sp:
+            sp.set(bytes=sum(p.nbytes for p in planes))
+            if torch.device(device).type != "cpu":
+                count("h2d_copies", len(planes))
+                count("h2d_bytes", sum(p.nbytes for p in planes))
+        return _to_clip(planes, info, device)
+
+
 def _to_clip(planes, info, device) -> Clip:
     # Clip.from_numpy converts the stream dtype ('<u2' for >8-bit) to the
     # storage dtype and makes one host-to-device copy a plane.
@@ -127,10 +151,10 @@ def read_y4m(f: Union[str, BinaryIO], max_frames: int | None = None,
     fh, close = _open(f, "rb")
     try:
         info = _parse_header(fh)
-        planes = _read_frame_block(fh, info, max_frames)
-        if not planes:
+        clip = _read_window(fh, info, max_frames, device)
+        if clip is None:
             raise ValueError("y4m stream contains no frames")
-        return _to_clip(planes, info, device)
+        return clip
     finally:
         if close:
             fh.close()
@@ -144,24 +168,27 @@ def iter_y4m(
     frames each — bounded memory for arbitrarily long streams.  The filter
     is per-frame independent (no temporal taps), so windowed processing is
     exact; only the bob pipeline needs one frame of lookahead across windows
-    (handled by the CLI's --window mode)."""
+    (handled by the CLI's --window mode).  The spans of window k carry k as
+    their call id."""
     if window < 1:
         raise ValueError("window must be >= 1")
     total = 0
     fh, close = _open(f, "rb")
     try:
         info = _parse_header(fh)
+        k = 0
         while max_frames is None or total < max_frames:
             take = (
                 window if max_frames is None
                 else min(window, max_frames - total)
             )
-            planes = _read_frame_block(fh, info, take)
-            if not planes:
+            clip = _read_window(fh, info, take, device, window=k)
+            if clip is None:
                 return
-            got = planes[0].shape[0]
+            got = clip.num_frames
             total += got
-            yield _to_clip(planes, info, device)
+            k += 1
+            yield clip
             if got < take:
                 return
     finally:
@@ -171,10 +198,10 @@ def iter_y4m(
 
 def write_y4m(f: Union[str, BinaryIO], clip: Clip,
               fps: tuple[int, int] | None = None,
-              interlace: str = "p") -> None:
+              interlace: str = "p", window: int | None = None) -> None:
     """Serialize a Clip as .y4m.  ``fps`` defaults to the framerate the clip
     was read with (``y4m_fps`` prop), else 25:1.  Raises for formats y4m
-    cannot carry (float, alpha)."""
+    cannot carry (float, alpha).  ``window``: the call id of its spans."""
     name = clip.format.name
     if name not in _FORMAT_TO_COLORSPACE:
         raise ValueError(f"format {name} has no y4m colorspace")
@@ -193,25 +220,33 @@ def write_y4m(f: Union[str, BinaryIO], clip: Clip,
             f"YUV4MPEG2 W{clip.width} H{clip.height} "
             f"F{fps[0]}:{fps[1]} I{interlace} A{aspect} C{cs}\n".encode()
         )
-        write_y4m_frames(fh, clip)
+        write_y4m_frames(fh, clip, window=window)
     finally:
         if close:
             fh.close()
 
 
-def write_y4m_frames(fh: BinaryIO, clip: Clip) -> None:
+def write_y4m_frames(fh: BinaryIO, clip: Clip, window: int | None = None) -> None:
     """Append FRAME records to an already-headered stream (the incremental
     half of write_y4m — used by windowed/streaming processing).
 
     Each plane is copied to the host and converted to the stream dtype ONCE
     for the whole clip; the per-frame writes hand the file the plane's own
-    buffer (zero-copy)."""
+    buffer (zero-copy).  ``window``: the call id of its spans."""
     dt = _sample_dtype(clip.format.component_size)
-    arrs = [
-        np.ascontiguousarray(p.cpu().numpy()).astype(dt, copy=False)
-        for p in clip.planes
-    ]
-    for n in range(clip.num_frames):
-        fh.write(b"FRAME\n")
-        for p in arrs:
-            fh.write(p[n].data)
+    with span(DOWNLOAD, call=window) as sp:
+        hosts = [p.cpu().numpy() for p in clip.planes]
+        if sp:
+            sp.set(frames=clip.num_frames, bytes=sum(h.nbytes for h in hosts))
+    with span(SERIALIZE, call=window):
+        arrs = [np.ascontiguousarray(h).astype(dt, copy=False) for h in hosts]
+    with span(WRITE, call=window) as sp:
+        for n in range(clip.num_frames):
+            fh.write(b"FRAME\n")
+            for p in arrs:
+                fh.write(p[n].data)
+        if sp:
+            nbytes = clip.num_frames * (6 + sum(p[0].nbytes for p in arrs))
+            sp.set(bytes=nbytes)
+            count("frames_out", clip.num_frames)
+            count("bytes_written", nbytes)

@@ -53,6 +53,7 @@ from sangnom_tpu_torch.core.geometry import creep_bound, round_up, width_tiers
 from sangnom_tpu_torch.ops import reference
 from sangnom_tpu_torch.ops.primitives import KernelSpec
 from sangnom_tpu_torch.ops.sangnom import Offset, weave_assemble
+from sangnom_tpu_torch.utils.profiling import BUILD, LAUNCH, count, span
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / "csrc"
@@ -149,7 +150,7 @@ def build(verbose: bool = False) -> float:
     there was built from this `source_hash`.  Returns the seconds spent
     compiling (0.0 when it was up to date).  ``verbose`` rebuilds and adds
     ptxas's register and shared-memory report to stdout."""
-    with _BUILD_LOCK:
+    with _BUILD_LOCK, span(BUILD):
         return _build(verbose)
 
 
@@ -180,6 +181,7 @@ def compile_library(lib: Path, verbose: bool = False) -> float:
     tmp = lib.with_name(f"{lib.name}.{tag}")
     ptxas = ["-Xptxas", "-v"] if verbose else []
     BUILDS += 1
+    count("builds")
     t0 = time.perf_counter()
     try:
         cmds = [[nvcc, *NVCC_FLAGS, *ptxas, "-c", str(src), "-o", str(obj)]
@@ -443,52 +445,57 @@ def _launch(src: torch.Tensor, out: torch.Tensor, spec: KernelSpec, aaf,
     """Validate and launch; ``src`` is [N, bufH, w] kept rows, or with
     ``interlaced`` (1 tff, 2 bff) an [N/2, 2*bufH, w] interlaced plane."""
     global LAUNCHES
-    device = src.device
-    if device.type != "cuda":
-        raise ValueError(f"deint kernel needs a CUDA tensor, got {device}")
-    if src.dtype != _storage_dtype(spec):
-        raise ValueError(f"deint kernel: dtype {src.dtype} does not match the "
-                         f"kernel spec {spec}")
-    if not src.is_contiguous():
-        raise ValueError("deint kernel: input must be contiguous")
-    if stride < w:
-        raise ValueError(f"deint kernel: stride {stride} < width {w}")
-    _, _, S = width_tiers(w, bufH, stride, spec)
-    lib = _load()
-    plan = launch_plan(w, S, src.element_size(), _max_smem_bytes(lib, device))
-    gbuf = grp = None
-    if plan.route == "global":
-        gbuf = torch.empty((n_fields, _MAPS, plan.pitch_b), dtype=spec.acc_dtype,
-                           device=device)
-        grp = torch.empty((n_fields, _MAPS, plan.pitch_p), dtype=src.dtype,
-                          device=device)
-    offs = None
-    if isinstance(offset, int):
-        if offset not in (0, 1):
-            raise ValueError(f"deint kernel: offset {offset} not in (0, 1)")
-        static_offset = offset
-    else:
-        static_offset = -1  # per-field offsets, read by the kernel
-        offs = torch.as_tensor(offset, dtype=torch.int32, device=device)
-        if offs.shape != (n_fields,) or not offs.is_contiguous():
-            raise ValueError(f"deint kernel: offsets {tuple(offs.shape)} for "
-                             f"{n_fields} fields")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    in_frame_stride = src.shape[1] * w
-    with torch.cuda.device(device), LAUNCH_LOCK:
-        err = lib.sno_deint_launch(
-            _DTYPE_CODE[src.dtype], int(spec.sse2 and not spec.is_float), plan.cols,
-            src.data_ptr(), out.data_ptr(),
-            None if offs is None else offs.data_ptr(),
-            None if gbuf is None else gbuf.data_ptr(),
-            None if grp is None else grp.data_ptr(),
-            n_fields, bufH, w, S, plan.pitch_b, plan.pitch_r, plan.pitch_p,
-            in_frame_stride, interlaced, int(weave), static_offset,
-            int(plan.route == "double"), float(aaf), plan.threads,
-            plan.smem_bytes, stream,
-        )
-    _check(lib, err, "deint kernel launch")
-    LAUNCHES += 1
+    with span(LAUNCH) as sp:
+        device = src.device
+        if device.type != "cuda":
+            raise ValueError(f"deint kernel needs a CUDA tensor, got {device}")
+        if src.dtype != _storage_dtype(spec):
+            raise ValueError(f"deint kernel: dtype {src.dtype} does not match the "
+                             f"kernel spec {spec}")
+        if not src.is_contiguous():
+            raise ValueError("deint kernel: input must be contiguous")
+        if stride < w:
+            raise ValueError(f"deint kernel: stride {stride} < width {w}")
+        _, _, S = width_tiers(w, bufH, stride, spec)
+        lib = _load()
+        plan = launch_plan(w, S, src.element_size(), _max_smem_bytes(lib, device))
+        gbuf = grp = None
+        if plan.route == "global":
+            gbuf = torch.empty((n_fields, _MAPS, plan.pitch_b), dtype=spec.acc_dtype,
+                               device=device)
+            grp = torch.empty((n_fields, _MAPS, plan.pitch_p), dtype=src.dtype,
+                              device=device)
+        offs = None
+        if isinstance(offset, int):
+            if offset not in (0, 1):
+                raise ValueError(f"deint kernel: offset {offset} not in (0, 1)")
+            static_offset = offset
+        else:
+            static_offset = -1  # per-field offsets, read by the kernel
+            offs = torch.as_tensor(offset, dtype=torch.int32, device=device)
+            if offs.shape != (n_fields,) or not offs.is_contiguous():
+                raise ValueError(f"deint kernel: offsets {tuple(offs.shape)} for "
+                                 f"{n_fields} fields")
+        stream = torch.cuda.current_stream(device).cuda_stream
+        in_frame_stride = src.shape[1] * w
+        with torch.cuda.device(device), LAUNCH_LOCK:
+            err = lib.sno_deint_launch(
+                _DTYPE_CODE[src.dtype], int(spec.sse2 and not spec.is_float), plan.cols,
+                src.data_ptr(), out.data_ptr(),
+                None if offs is None else offs.data_ptr(),
+                None if gbuf is None else gbuf.data_ptr(),
+                None if grp is None else grp.data_ptr(),
+                n_fields, bufH, w, S, plan.pitch_b, plan.pitch_r, plan.pitch_p,
+                in_frame_stride, interlaced, int(weave), static_offset,
+                int(plan.route == "double"), float(aaf), plan.threads,
+                plan.smem_bytes, stream,
+            )
+        _check(lib, err, "deint kernel launch")
+        LAUNCHES += 1
+        if sp:
+            sp.set(kernel="deint_kernel", blocks=n_fields, threads=plan.threads,
+                   smem_bytes=plan.smem_bytes,
+                   bytes=(src.numel() + out.numel()) * src.element_size())
 
 
 def deinterlace_field_batch_plain(

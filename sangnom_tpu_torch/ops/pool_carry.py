@@ -63,7 +63,7 @@ from sangnom_tpu_torch.ops.reference import (
 )
 from sangnom_tpu_torch.ops.sangnom import field_offset_py
 from sangnom_tpu_torch.utils.logging import log_dispatch
-from sangnom_tpu_torch.utils.profiling import stage_scope
+from sangnom_tpu_torch.utils.profiling import POOL_BATCH_PASS, POOL_PASS, span
 
 # Kernel-route arm flags (read per call).  POOL_FUSED (K7: prepare, walk
 # and finalize kernels) is the default on the GPU: an H100 runs it fastest
@@ -336,7 +336,9 @@ def _sangnom2_pool_batched(planes, outs, passes, offsets: list[int], dh: bool,
         offs = offsets[s:e]
         for i, aaf in passes:
             kept = _gather_kept_batch(planes[i][s:e], offs, dh)
-            with stage_scope("pool batch pass"):
+            with span(POOL_BATCH_PASS) as sp:
+                if sp:
+                    sp.set(frames=e - s, plane=i)
                 interp = interp_field_pool_batch(kept, carry, aaf, spec)
             _assemble_batch(outs[i][s:e], kept, interp, offs)
         last = (zeros[-1], carry[1][-1], zeros[-1])
@@ -424,7 +426,9 @@ def sangnom2_pool_impl(
         for i, aaf in passes:
             src = planes[i][f]
             kept = src if dh else src[off::2]
-            with stage_scope("pool pass"):
+            with span(POOL_PASS) as sp:
+                if sp:
+                    sp.set(frame=f, plane=i)
                 interp = plane_pass(kept, carry, aaf, spec)
             _assemble_into(outs[i][f], kept, interp, off)
     if split:

@@ -54,6 +54,7 @@ import torch
 
 from sangnom_tpu_torch.ops import deint_kernel as dk
 from sangnom_tpu_torch.ops.primitives import KernelSpec, smooth_writeback
+from sangnom_tpu_torch.utils.profiling import LAUNCH, span
 from sangnom_tpu_torch.ops.reference import (
     _hbox7,
     error_maps_list,
@@ -266,16 +267,30 @@ def card_walk_plan(spec: KernelSpec, S: int, n_steps: int, device) -> WalkPlan:
     return plan if _cluster_ok[key] else walk_plan(S, n_steps, cluster=False)
 
 
+ROW_THREADS = 256  # threads a block of the prepare and finalize grids (pool.cu)
+
+
+def row_blocks(rows: int, w: int, frames: int) -> int:
+    """Blocks of the prepare and finalize grids of pool.cu and shard.cu
+    (``row_grid``)."""
+    return -(-w // ROW_THREADS) * min(rows, 65535) * frames
+
+
 def _walk(name: str, key: str, spec: KernelSpec, row0: torch.Tensor, body: torch.Tensor,
-          tail: torch.Tensor, narrow) -> None:
+          tail: torch.Tensor, narrow, sp) -> None:
     """Launch the walk over ``body`` [maps, n, S] (rows contiguous, any map
     stride) seeded by ``row0`` [maps, S] with ``tail`` [maps, S] as input
     row n: ``narrow(lib, code, sse2, cols, threads, stream)`` launches the
     one-block walk; past one block's columns the wide walk runs here.  Adds
-    one to ``LAUNCHES[key]`` a launch."""
+    one to ``LAUNCHES[key]`` a launch, and the grid to the launch span
+    ``sp``."""
     maps, n, S = body.shape
     device = body.device
     plan = card_walk_plan(spec, S, n, device)
+    if sp:
+        sp.set(kernel="pool_smooth_kernel", blocks=maps * plan.k, threads=plan.threads,
+               smem_bytes=plan.smem_bytes,
+               bytes=(2 * body.numel() + row0.numel() + tail.numel()) * body.element_size())
     lib = _lib()
     code, sse2, stream = _common(spec, device)
     if plan.k == 1:
@@ -303,6 +318,8 @@ def _walk(name: str, key: str, spec: KernelSpec, row0: torch.Tensor, body: torch
                                    "scheduled on this card")
             dk._check(lib, err, f"{name} launch")
             LAUNCHES[key] += 1
+    if sp:
+        sp.set(launches=len(chunks))
 
 
 def smooth_split_plain_(row0: torch.Tensor, body: torch.Tensor, tail: torch.Tensor,
@@ -352,19 +369,20 @@ def smooth_pool_(pool: torch.Tensor, spec: KernelSpec) -> torch.Tensor:
     """Smooth pool rows 1..P-1 of ``pool`` ([9, P+1, S], accumulator dtype)
     in place over the full stride (reference src/SangNom2.cpp:129-152).
     Returns ``pool``."""
-    name = "pool smooth kernel"
-    if pool.dim() != 3 or pool.shape[0] != _MAPS:
-        raise ValueError(f"{name}: pool must be [9, P+1, S], got {tuple(pool.shape)}")
-    _check_acc(name, spec, pool)
-    if pool.device.type == "cpu":
-        return smooth_pool_plain_(pool, spec)
-    P, S = pool.shape[1] - 1, pool.shape[2]
-    if P < 2:
+    with span(LAUNCH) as sp:
+        name = "pool smooth kernel"
+        if pool.dim() != 3 or pool.shape[0] != _MAPS:
+            raise ValueError(f"{name}: pool must be [9, P+1, S], got {tuple(pool.shape)}")
+        _check_acc(name, spec, pool)
+        if pool.device.type == "cpu":
+            return smooth_pool_plain_(pool, spec)
+        P, S = pool.shape[1] - 1, pool.shape[2]
+        if P < 2:
+            return pool
+        _walk(name, "smooth", spec, pool[:, 0], pool[:, 1:P], pool[:, P],
+              lambda lib, code, sse2, cols, threads, stream: lib.sno_pool_smooth_launch(
+                  code, sse2, cols, pool.data_ptr(), P, S, threads, stream), sp)
         return pool
-    _walk(name, "smooth", spec, pool[:, 0], pool[:, 1:P], pool[:, P],
-          lambda lib, code, sse2, cols, threads, stream: lib.sno_pool_smooth_launch(
-              code, sse2, cols, pool.data_ptr(), P, S, threads, stream))
-    return pool
 
 
 # --- K6 --------------------------------------------------------------------
@@ -382,17 +400,18 @@ def smooth_split3_(row0: torch.Tensor, body: torch.Tensor, tail: torch.Tensor,
     """The pool smoothing on the split carry: seeded by ``row0`` [9, S], over
     ``body`` [9, P-1, S] (smoothed in place) with ``tail`` [9, S] as pool
     row P.  Returns ``body``."""
-    name = "pool split3 kernel"
-    P, S = _check_split(name, spec, row0, body, tail)
-    if body.device.type == "cpu":
-        return smooth_split3_plain_(row0, body, tail, spec)
-    if P < 2:
+    with span(LAUNCH) as sp:
+        name = "pool split3 kernel"
+        P, S = _check_split(name, spec, row0, body, tail)
+        if body.device.type == "cpu":
+            return smooth_split3_plain_(row0, body, tail, spec)
+        if P < 2:
+            return body
+        _walk(name, "split3", spec, row0, body, tail,
+              lambda lib, code, sse2, cols, threads, stream: lib.sno_pool_smooth_split3_launch(
+                  code, sse2, cols, row0.data_ptr(), body.data_ptr(), tail.data_ptr(), P, S,
+                  threads, stream), sp)
         return body
-    _walk(name, "split3", spec, row0, body, tail,
-          lambda lib, code, sse2, cols, threads, stream: lib.sno_pool_smooth_split3_launch(
-              code, sse2, cols, row0.data_ptr(), body.data_ptr(), tail.data_ptr(), P, S,
-              threads, stream))
-    return body
 
 
 # --- K7: prepare, the K6 walk, finalize ------------------------------------
@@ -412,20 +431,26 @@ def prepare_pool_(kept: torch.Tensor, body: torch.Tensor, spec: KernelSpec) -> t
     into ``body`` [9, P-1, S] rows 0..R-1 (pool rows 1..R), columns 0..w-1,
     in place; the rest of the body keeps its (stale) content.  Returns
     ``body``."""
-    name = "pool prepare kernel"
-    P, S = _check_body(name, spec, body)
-    _check_kept(name, spec, kept, P, S, body.device)
-    if kept.device.type == "cpu":
-        return prepare_pool_plain_(kept, body, spec)
-    bufH_p, w = kept.shape
-    lib = _lib()
-    code, sse2, stream = _common(spec, kept.device)
-    with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
-        err = lib.sno_pool_prepare_launch(code, sse2, kept.data_ptr(), body.data_ptr(),
-                                          kept.stride(0), P, bufH_p - 1, w, S, stream)
-    dk._check(lib, err, f"{name} launch")
-    LAUNCHES["prepare"] += 1
-    return body
+    with span(LAUNCH) as sp:
+        name = "pool prepare kernel"
+        P, S = _check_body(name, spec, body)
+        _check_kept(name, spec, kept, P, S, body.device)
+        if kept.device.type == "cpu":
+            return prepare_pool_plain_(kept, body, spec)
+        bufH_p, w = kept.shape
+        lib = _lib()
+        code, sse2, stream = _common(spec, kept.device)
+        with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
+            err = lib.sno_pool_prepare_launch(code, sse2, kept.data_ptr(), body.data_ptr(),
+                                              kept.stride(0), P, bufH_p - 1, w, S, stream)
+        dk._check(lib, err, f"{name} launch")
+        LAUNCHES["prepare"] += 1
+        if sp:
+            sp.set(kernel="pool_prepare_kernel", blocks=row_blocks(bufH_p - 1, w, 1),
+                   threads=ROW_THREADS, smem_bytes=0,
+                   bytes=bufH_p * w * kept.element_size()
+                   + _MAPS * (bufH_p - 1) * w * body.element_size())
+        return body
 
 
 def finalize_pool_plain(kept: torch.Tensor, body: torch.Tensor, aaf,
@@ -442,22 +467,28 @@ def finalize_pool(kept: torch.Tensor, body: torch.Tensor, aaf,
                   spec: KernelSpec) -> torch.Tensor:
     """The interpolated rows [R, w] of kept pairs (b-1, b), b = 1..R, from
     the smoothed maps in ``body`` rows 0..R-1, columns 0..w-1."""
-    name = "pool finalize kernel"
-    P, S = _check_body(name, spec, body)
-    _check_kept(name, spec, kept, P, S, body.device)
-    if kept.device.type == "cpu":
-        return finalize_pool_plain(kept, body, aaf, spec)
-    bufH_p, w = kept.shape
-    out = torch.empty((bufH_p - 1, w), dtype=kept.dtype, device=kept.device)
-    lib = _lib()
-    code, sse2, stream = _common(spec, kept.device)
-    with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
-        err = lib.sno_pool_finalize_launch(
-            code, sse2, kept.data_ptr(), body.data_ptr(), out.data_ptr(),
-            kept.stride(0), P, bufH_p - 1, w, S, float(aaf), stream)
-    dk._check(lib, err, f"{name} launch")
-    LAUNCHES["finalize"] += 1
-    return out
+    with span(LAUNCH) as sp:
+        name = "pool finalize kernel"
+        P, S = _check_body(name, spec, body)
+        _check_kept(name, spec, kept, P, S, body.device)
+        if kept.device.type == "cpu":
+            return finalize_pool_plain(kept, body, aaf, spec)
+        bufH_p, w = kept.shape
+        out = torch.empty((bufH_p - 1, w), dtype=kept.dtype, device=kept.device)
+        lib = _lib()
+        code, sse2, stream = _common(spec, kept.device)
+        with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
+            err = lib.sno_pool_finalize_launch(
+                code, sse2, kept.data_ptr(), body.data_ptr(), out.data_ptr(),
+                kept.stride(0), P, bufH_p - 1, w, S, float(aaf), stream)
+        dk._check(lib, err, f"{name} launch")
+        LAUNCHES["finalize"] += 1
+        if sp:
+            sp.set(kernel="pool_finalize_kernel", blocks=row_blocks(bufH_p - 1, w, 1),
+                   threads=ROW_THREADS, smem_bytes=0,
+                   bytes=(bufH_p * w + out.numel()) * kept.element_size()
+                   + _MAPS * (bufH_p - 1) * w * body.element_size())
+        return out
 
 
 def interp_fused_plain(kept, row0, body, tail, aaf, spec: KernelSpec):
@@ -524,18 +555,19 @@ def smooth_batch_(row0: torch.Tensor, body: torch.Tensor, tail: torch.Tensor,
     (row0[k], body[k], tail[k]) as `smooth_split3_` takes it; ``body`` is
     smoothed in place.  On CUDA tensors one launch of the walk over 9K maps.
     Returns ``body``."""
-    name = "pool batch walk"
-    K, P, S = _check_batch(name, spec, row0, body, tail)
-    if body.device.type == "cpu":
-        return smooth_batch_plain_(row0, body, tail, spec)
-    if P < 2:
+    with span(LAUNCH) as sp:
+        name = "pool batch walk"
+        K, P, S = _check_batch(name, spec, row0, body, tail)
+        if body.device.type == "cpu":
+            return smooth_batch_plain_(row0, body, tail, spec)
+        if P < 2:
+            return body
+        _walk(name, "split3", spec, row0.view(K * _MAPS, S), body.view(K * _MAPS, P - 1, S),
+              tail.view(K * _MAPS, S),
+              lambda lib, code, sse2, cols, threads, stream: lib.sno_pool_smooth_batch_launch(
+                  code, sse2, cols, row0.data_ptr(), body.data_ptr(), tail.data_ptr(),
+                  K * _MAPS, P, S, threads, stream), sp)
         return body
-    _walk(name, "split3", spec, row0.view(K * _MAPS, S), body.view(K * _MAPS, P - 1, S),
-          tail.view(K * _MAPS, S),
-          lambda lib, code, sse2, cols, threads, stream: lib.sno_pool_smooth_batch_launch(
-              code, sse2, cols, row0.data_ptr(), body.data_ptr(), tail.data_ptr(),
-              K * _MAPS, P, S, threads, stream))
-    return body
 
 
 def walk_occupancy(spec: KernelSpec, S: int, device="cuda") -> tuple[int, int]:
@@ -587,24 +619,30 @@ def prepare_batch_(kept: torch.Tensor, body: torch.Tensor, spec: KernelSpec) -> 
     """`prepare_pool_` for K frames: kept rows [K, bufH_p, w] (frames and
     rows may be strided, columns contiguous) into ``body`` [K, 9, P-1, S],
     in place.  Returns ``body``."""
-    name = "pool batch prepare"
-    if body.dim() != 4 or body.shape[1] != _MAPS:
-        raise ValueError(f"{name}: body must be [K, 9, P-1, S], got {tuple(body.shape)}")
-    _check_acc(name, spec, body)
-    _check_kept_batch(name, spec, kept, body)
-    if kept.device.type == "cpu":
-        return prepare_batch_plain_(kept, body, spec)
-    K, bufH_p, w = kept.shape
-    P, S = body.shape[2] + 1, body.shape[3]
-    lib = _lib()
-    code, sse2, stream = _common(spec, kept.device)
-    with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
-        err = lib.sno_pool_prepare_batch_launch(
-            code, sse2, kept.data_ptr(), body.data_ptr(), kept.stride(0),
-            kept.stride(1), K, P, bufH_p - 1, w, S, stream)
-    dk._check(lib, err, f"{name} launch")
-    LAUNCHES["prepare"] += 1
-    return body
+    with span(LAUNCH) as sp:
+        name = "pool batch prepare"
+        if body.dim() != 4 or body.shape[1] != _MAPS:
+            raise ValueError(f"{name}: body must be [K, 9, P-1, S], got {tuple(body.shape)}")
+        _check_acc(name, spec, body)
+        _check_kept_batch(name, spec, kept, body)
+        if kept.device.type == "cpu":
+            return prepare_batch_plain_(kept, body, spec)
+        K, bufH_p, w = kept.shape
+        P, S = body.shape[2] + 1, body.shape[3]
+        lib = _lib()
+        code, sse2, stream = _common(spec, kept.device)
+        with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
+            err = lib.sno_pool_prepare_batch_launch(
+                code, sse2, kept.data_ptr(), body.data_ptr(), kept.stride(0),
+                kept.stride(1), K, P, bufH_p - 1, w, S, stream)
+        dk._check(lib, err, f"{name} launch")
+        LAUNCHES["prepare"] += 1
+        if sp:
+            sp.set(kernel="pool_prepare_kernel", blocks=row_blocks(bufH_p - 1, w, K),
+                   threads=ROW_THREADS, smem_bytes=0,
+                   bytes=K * bufH_p * w * kept.element_size()
+                   + K * _MAPS * (bufH_p - 1) * w * body.element_size())
+        return body
 
 
 def finalize_batch_plain(kept: torch.Tensor, body: torch.Tensor, aaf,
@@ -621,26 +659,32 @@ def finalize_batch(kept: torch.Tensor, body: torch.Tensor, aaf,
                    spec: KernelSpec) -> torch.Tensor:
     """`finalize_pool` for K frames: the interpolated rows [K, R, w] from
     kept rows [K, bufH_p, w] and the smoothed ``body`` [K, 9, P-1, S]."""
-    name = "pool batch finalize"
-    if body.dim() != 4 or body.shape[1] != _MAPS:
-        raise ValueError(f"{name}: body must be [K, 9, P-1, S], got {tuple(body.shape)}")
-    _check_acc(name, spec, body)
-    _check_kept_batch(name, spec, kept, body)
-    if kept.device.type == "cpu":
-        return finalize_batch_plain(kept, body, aaf, spec)
-    K, bufH_p, w = kept.shape
-    P, S = body.shape[2] + 1, body.shape[3]
-    out = torch.empty((K, bufH_p - 1, w), dtype=kept.dtype, device=kept.device)
-    lib = _lib()
-    code, sse2, stream = _common(spec, kept.device)
-    with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
-        err = lib.sno_pool_finalize_batch_launch(
-            code, sse2, kept.data_ptr(), body.data_ptr(), out.data_ptr(),
-            kept.stride(0), kept.stride(1), out.stride(0), K, P, bufH_p - 1, w,
-            S, float(aaf), stream)
-    dk._check(lib, err, f"{name} launch")
-    LAUNCHES["finalize"] += 1
-    return out
+    with span(LAUNCH) as sp:
+        name = "pool batch finalize"
+        if body.dim() != 4 or body.shape[1] != _MAPS:
+            raise ValueError(f"{name}: body must be [K, 9, P-1, S], got {tuple(body.shape)}")
+        _check_acc(name, spec, body)
+        _check_kept_batch(name, spec, kept, body)
+        if kept.device.type == "cpu":
+            return finalize_batch_plain(kept, body, aaf, spec)
+        K, bufH_p, w = kept.shape
+        P, S = body.shape[2] + 1, body.shape[3]
+        out = torch.empty((K, bufH_p - 1, w), dtype=kept.dtype, device=kept.device)
+        lib = _lib()
+        code, sse2, stream = _common(spec, kept.device)
+        with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
+            err = lib.sno_pool_finalize_batch_launch(
+                code, sse2, kept.data_ptr(), body.data_ptr(), out.data_ptr(),
+                kept.stride(0), kept.stride(1), out.stride(0), K, P, bufH_p - 1, w,
+                S, float(aaf), stream)
+        dk._check(lib, err, f"{name} launch")
+        LAUNCHES["finalize"] += 1
+        if sp:
+            sp.set(kernel="pool_finalize_kernel", blocks=row_blocks(bufH_p - 1, w, K),
+                   threads=ROW_THREADS, smem_bytes=0,
+                   bytes=(K * bufH_p * w + out.numel()) * kept.element_size()
+                   + K * _MAPS * (bufH_p - 1) * w * body.element_size())
+        return out
 
 
 def interp_batch_plain(kept, row0, body, tail, aaf, spec: KernelSpec):

@@ -30,7 +30,7 @@ from sangnom_tpu_torch.core.geometry import (
 from sangnom_tpu_torch.ops import reference as ref_backend
 from sangnom_tpu_torch.ops.primitives import KernelSpec
 from sangnom_tpu_torch.utils.logging import log_dispatch
-from sangnom_tpu_torch.utils.profiling import stage_scope
+from sangnom_tpu_torch.utils.profiling import CALL, PLANE, count, span
 
 Offset = Union[int, torch.Tensor]
 
@@ -99,23 +99,20 @@ def deinterlace_plane_batch(
     weave_ok = fused_weave is not None and bufH >= 2
     shards = getattr(fused_weave, "sharded", 0)
     if weave_ok and plane_width is None and not shards:
-        with stage_scope("interpolate+weave"):
-            return fused_weave(kept, offsets, aaf, spec, stride,
-                               interlaced_tff=interlaced_tff)
+        return fused_weave(kept, offsets, aaf, spec, stride,
+                           interlaced_tff=interlaced_tff)
     if interlaced_tff is not None:
         from sangnom_tpu_torch.core.fields import _split_plane
 
         kept = _split_plane(src, interlaced_tff)
     if weave_ok and shards and kept.shape[2] // shards >= 9:
         # the sharded weave; thinner shards interpolate, then weave below
-        with stage_scope("interpolate+weave"):
-            return fused_weave(kept, offsets, aaf, spec, stride,
-                               plane_width=plane_width)
-    with stage_scope("interpolate"):
-        if plane_width is None:
-            interp = interp_fn(kept, aaf, spec, stride)
-        else:
-            interp = interp_fn(kept, aaf, spec, stride, plane_width=plane_width)
+        return fused_weave(kept, offsets, aaf, spec, stride,
+                           plane_width=plane_width)
+    if plane_width is None:
+        interp = interp_fn(kept, aaf, spec, stride)
+    else:
+        interp = interp_fn(kept, aaf, spec, stride, plane_width=plane_width)
     return weave_assemble(kept, interp, offsets)
 
 
@@ -152,6 +149,9 @@ def field_offsets(order: int, parity, device: torch.device) -> Offset:
     if order == 2:
         return 1
     offs = np.where(np.asarray(parity, dtype=bool), 0, 1).astype(np.int32)
+    if device.type != "cpu":
+        count("h2d_copies")
+        count("h2d_bytes", offs.nbytes)
     return torch.from_numpy(offs).to(device)
 
 
@@ -213,15 +213,20 @@ def sangnom2_impl(
     ]
     if len(chroma_planes) == 2 and planes[1].shape == planes[2].shape:
         # U and V share geometry, threshold and offsets: one batched launch
-        uv = torch.cat([planes[1], planes[2]], dim=0)
-        offs2 = offsets if isinstance(offsets, int) else offsets.repeat(2)
-        # output frames per plane, doubled for interlaced (bob) input
-        n = planes[1].shape[0] * (1 if interlaced_tff is None else 2)
-        res = deinterlace_plane_batch(
-            uv, offs2, dh=dh, aaf=aaf_as_pixel(aafs[1], fmt), spec=spec,
-            stride=stride, interp_fn=interp_fn, plane_width=width_of(1),
-            interlaced_tff=interlaced_tff,
-        )
+        with span(PLANE) as sp:
+            uv = torch.cat([planes[1], planes[2]], dim=0)
+            if sp:
+                sp.set(plane="uv",
+                       fields=uv.shape[0] * (1 if interlaced_tff is None else 2),
+                       bytes=uv.numel() * uv.element_size())
+            offs2 = offsets if isinstance(offsets, int) else offsets.repeat(2)
+            # output frames per plane, doubled for interlaced (bob) input
+            n = planes[1].shape[0] * (1 if interlaced_tff is None else 2)
+            res = deinterlace_plane_batch(
+                uv, offs2, dh=dh, aaf=aaf_as_pixel(aafs[1], fmt), spec=spec,
+                stride=stride, interp_fn=interp_fn, plane_width=width_of(1),
+                interlaced_tff=interlaced_tff,
+            )
         out[1], out[2] = res[:n], res[n:]
 
     for i, p in enumerate(planes):
@@ -239,11 +244,15 @@ def sangnom2_impl(
             # src/SangNom2.cpp:369-374); dh forces every plane (361-366).
             out[i] = p
             continue
-        out[i] = deinterlace_plane_batch(
-            p, offsets, dh=dh, aaf=aaf_as_pixel(aafs[i], fmt), spec=spec,
-            stride=stride, interp_fn=interp_fn, plane_width=width_of(i),
-            interlaced_tff=interlaced_tff,
-        )
+        with span(PLANE) as sp:
+            if sp:
+                sp.set(plane=i, fields=p.shape[0] * (1 if interlaced_tff is None else 2),
+                       bytes=p.numel() * p.element_size())
+            out[i] = deinterlace_plane_batch(
+                p, offsets, dh=dh, aaf=aaf_as_pixel(aafs[i], fmt), spec=spec,
+                stride=stride, interp_fn=interp_fn, plane_width=width_of(i),
+                interlaced_tff=interlaced_tff,
+            )
     return tuple(out[i] for i in range(len(planes)))
 
 
@@ -324,16 +333,22 @@ def sangnom2_pool_stream(
     from sangnom_tpu_torch.api import _validate, _validate_numerics
     from sangnom_tpu_torch.ops.pool_carry import sangnom2_pool_impl
 
-    _validate("SangNom2", clip, order, aa, aac, opt)
-    _validate_numerics("SangNom2", numerics)
-    pool0 = None
-    if pool_state is not None:
-        pool0 = pool_state.to(device=clip.device, copy=True)
-    planes, pool = sangnom2_pool_impl(
-        clip.planes, clip.parity_array(), clip.format, order, aa, aac, dh,
-        luma, chroma, pool0=pool0, numerics=numerics, opt=opt,
-    )
-    return clip.with_planes(planes), pool
+    with span(CALL) as sp:
+        if sp:
+            sp.set(entry="sangnom2_pool_stream", path="pool", frames_in=clip.num_frames)
+        _validate("SangNom2", clip, order, aa, aac, opt)
+        _validate_numerics("SangNom2", numerics)
+        pool0 = None
+        if pool_state is not None:
+            pool0 = pool_state.to(device=clip.device, copy=True)
+        planes, pool = sangnom2_pool_impl(
+            clip.planes, clip.parity_array(), clip.format, order, aa, aac, dh,
+            luma, chroma, pool0=pool0, numerics=numerics, opt=opt,
+        )
+        out = clip.with_planes(planes)
+        if sp:
+            sp.set(frames_out=out.num_frames)
+    return out, pool
 
 
 def _order0_static_split(clip, parity, aa, aac, dh, luma, chroma, opt,

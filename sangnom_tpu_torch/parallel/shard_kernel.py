@@ -35,7 +35,9 @@ from typing import NamedTuple
 import torch
 
 from sangnom_tpu_torch.ops import deint_kernel as dk
+from sangnom_tpu_torch.ops.pool_kernel import ROW_THREADS, row_blocks
 from sangnom_tpu_torch.ops.primitives import KernelSpec
+from sangnom_tpu_torch.utils.profiling import LAUNCH, span
 
 # Kernel launches since import (or since the caller last reset them).
 LAUNCHES = {"full": 0, "smooth": 0, "prepare": 0, "finalize": 0}
@@ -270,17 +272,22 @@ def _launch_full(lib, plan: Plan, spec: KernelSpec, kept, out, weave_args, scrat
                  gout, n_space: int, w_glob: int, lo: int, hi: int, aaf, name: str) -> None:
     """One K4 launch over steps lo..hi-1 (the caller holds the device and
     LAUNCH_LOCK)."""
-    N, bufH, S = kept.shape
-    weave, static_offset, offs = weave_args
-    code, sse2, stream = _codes(spec, kept.device)
-    err = lib.sno_shard_full_launch(
-        code, sse2, plan.cols, kept.data_ptr(), out.data_ptr(), _ptr(offs),
-        _ptr(scratch[0]), _ptr(scratch[1]), _ptr(gin), _ptr(gout), N, n_space, bufH, S,
-        S // n_space, plan.H, w_glob, plan.R, lo, hi, weave, static_offset,
-        int(plan.route == "double"), plan.pitch_b, plan.pitch_r, plan.pitch_p,
-        int(plan.cluster), float(aaf), plan.threads, plan.smem_bytes, stream)
-    check_launch(lib, err, f"{name} launch", n_space)
-    LAUNCHES["full"] += 1
+    with span(LAUNCH) as sp:
+        N, bufH, S = kept.shape
+        weave, static_offset, offs = weave_args
+        code, sse2, stream = _codes(spec, kept.device)
+        err = lib.sno_shard_full_launch(
+            code, sse2, plan.cols, kept.data_ptr(), out.data_ptr(), _ptr(offs),
+            _ptr(scratch[0]), _ptr(scratch[1]), _ptr(gin), _ptr(gout), N, n_space, bufH, S,
+            S // n_space, plan.H, w_glob, plan.R, lo, hi, weave, static_offset,
+            int(plan.route == "double"), plan.pitch_b, plan.pitch_r, plan.pitch_p,
+            int(plan.cluster), float(aaf), plan.threads, plan.smem_bytes, stream)
+        check_launch(lib, err, f"{name} launch", n_space)
+        LAUNCHES["full"] += 1
+        if sp:
+            sp.set(kernel="shard_full_kernel", blocks=N * n_space, threads=plan.threads,
+                   smem_bytes=plan.smem_bytes,
+                   bytes=(kept.numel() + out.numel()) * kept.element_size())
 
 
 def full_pass(kept: torch.Tensor, offsets, aaf, spec: KernelSpec, n_space: int,
@@ -355,14 +362,19 @@ def _launch_smooth(lib, plan: Plan, spec: KernelSpec, raw, out, n_space: int, ba
                    steps: int, name: str) -> None:
     """One K5 launch over steps base..base+steps-1 (the caller holds the
     device and LAUNCH_LOCK)."""
-    C, bufHp1, S = raw.shape
-    code, sse2, stream = _codes(spec, raw.device)
-    err = lib.sno_shard_smooth_launch(
-        code, sse2, plan.cols, raw.data_ptr(), out.data_ptr(), C, n_space, bufHp1 - 1, S,
-        S // n_space, plan.H, plan.R, base, steps, plan.pitch_b, int(plan.cluster),
-        plan.threads, plan.smem_bytes, stream)
-    check_launch(lib, err, f"{name} launch", n_space)
-    LAUNCHES["smooth"] += 1
+    with span(LAUNCH) as sp:
+        C, bufHp1, S = raw.shape
+        code, sse2, stream = _codes(spec, raw.device)
+        err = lib.sno_shard_smooth_launch(
+            code, sse2, plan.cols, raw.data_ptr(), out.data_ptr(), C, n_space, bufHp1 - 1, S,
+            S // n_space, plan.H, plan.R, base, steps, plan.pitch_b, int(plan.cluster),
+            plan.threads, plan.smem_bytes, stream)
+        check_launch(lib, err, f"{name} launch", n_space)
+        LAUNCHES["smooth"] += 1
+        if sp:
+            sp.set(kernel="shard_smooth_kernel", blocks=C * n_space, threads=plan.threads,
+                   smem_bytes=plan.smem_bytes,
+                   bytes=(raw.numel() + out.numel()) * raw.element_size())
 
 
 def smooth_pass(raw: torch.Tensor, spec: KernelSpec, n_space: int,
@@ -416,20 +428,25 @@ def prepare(kept: torch.Tensor, spec: KernelSpec, w_glob: int) -> torch.Tensor:
     """The chunked route's raw maps: ``kept`` [N, bufH, S] -> [9, N, bufH+1,
     S] in the accumulator dtype, zero in rows 0 and bufH and at columns >=
     ``w_glob``; taps clamp at columns 0 and S-1."""
-    name = "sharded prepare kernel"
-    if kept.dtype != dk._storage_dtype(spec):
-        raise ValueError(f"{name}: dtype {kept.dtype} does not match the kernel spec {spec}")
-    _check(name, kept)
-    N, bufH, S = kept.shape
-    raw = torch.empty((_MAPS, N, bufH + 1, S), dtype=spec.acc_dtype, device=kept.device)
-    lib = _lib()
-    code, sse2, stream = _codes(spec, kept.device)
-    with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
-        err = lib.sno_shard_prepare_launch(code, sse2, kept.data_ptr(), raw.data_ptr(),
-                                           N, bufH, S, w_glob, stream)
-    dk._check(lib, err, f"{name} launch")
-    LAUNCHES["prepare"] += 1
-    return raw
+    with span(LAUNCH) as sp:
+        name = "sharded prepare kernel"
+        if kept.dtype != dk._storage_dtype(spec):
+            raise ValueError(f"{name}: dtype {kept.dtype} does not match the kernel spec {spec}")
+        _check(name, kept)
+        N, bufH, S = kept.shape
+        raw = torch.empty((_MAPS, N, bufH + 1, S), dtype=spec.acc_dtype, device=kept.device)
+        lib = _lib()
+        code, sse2, stream = _codes(spec, kept.device)
+        with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
+            err = lib.sno_shard_prepare_launch(code, sse2, kept.data_ptr(), raw.data_ptr(),
+                                               N, bufH, S, w_glob, stream)
+        dk._check(lib, err, f"{name} launch")
+        LAUNCHES["prepare"] += 1
+        if sp:
+            sp.set(kernel="shard_prepare_kernel", blocks=row_blocks(bufH + 1, S, N),
+                   threads=ROW_THREADS, smem_bytes=0,
+                   bytes=kept.numel() * kept.element_size() + raw.numel() * raw.element_size())
+        return raw
 
 
 def _weave_args(offsets, device):
@@ -448,27 +465,33 @@ def finalize(kept: torch.Tensor, sm: torch.Tensor, aaf, spec: KernelSpec,
     smoothed maps ``sm`` [9, N, bufH-1, S] -> the interpolated rows [N,
     bufH-1, S] (storage dtype), or with ``offsets`` (0, 1 or a per-field
     tensor) the woven plane [N, 2*bufH, S]."""
-    name = "sharded finalize kernel"
-    N, bufH, S = kept.shape
-    if kept.dtype != dk._storage_dtype(spec) or sm.dtype != spec.acc_dtype:
-        raise ValueError(f"{name}: dtypes {kept.dtype}, {sm.dtype} do not match the "
-                         f"kernel spec {spec}")
-    if tuple(sm.shape) != (_MAPS, N, bufH - 1, S):
-        raise ValueError(f"{name}: smoothed {tuple(sm.shape)} for kept {tuple(kept.shape)}")
-    _check(name, kept, sm)
-    weave, static_offset, offs = _weave_args(offsets, kept.device)
-    out = torch.empty((N, 2 * bufH if weave else bufH - 1, S), dtype=kept.dtype,
-                      device=kept.device)
-    lib = _lib()
-    code, sse2, stream = _codes(spec, kept.device)
-    with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
-        err = lib.sno_shard_finalize_launch(
-            code, sse2, kept.data_ptr(), sm.data_ptr(), out.data_ptr(),
-            None if offs is None else offs.data_ptr(), N, bufH, S, weave, static_offset,
-            float(aaf), stream)
-    dk._check(lib, err, f"{name} launch")
-    LAUNCHES["finalize"] += 1
-    return out
+    with span(LAUNCH) as sp:
+        name = "sharded finalize kernel"
+        N, bufH, S = kept.shape
+        if kept.dtype != dk._storage_dtype(spec) or sm.dtype != spec.acc_dtype:
+            raise ValueError(f"{name}: dtypes {kept.dtype}, {sm.dtype} do not match the "
+                             f"kernel spec {spec}")
+        if tuple(sm.shape) != (_MAPS, N, bufH - 1, S):
+            raise ValueError(f"{name}: smoothed {tuple(sm.shape)} for kept {tuple(kept.shape)}")
+        _check(name, kept, sm)
+        weave, static_offset, offs = _weave_args(offsets, kept.device)
+        out = torch.empty((N, 2 * bufH if weave else bufH - 1, S), dtype=kept.dtype,
+                          device=kept.device)
+        lib = _lib()
+        code, sse2, stream = _codes(spec, kept.device)
+        with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
+            err = lib.sno_shard_finalize_launch(
+                code, sse2, kept.data_ptr(), sm.data_ptr(), out.data_ptr(),
+                None if offs is None else offs.data_ptr(), N, bufH, S, weave, static_offset,
+                float(aaf), stream)
+        dk._check(lib, err, f"{name} launch")
+        LAUNCHES["finalize"] += 1
+        if sp:
+            sp.set(kernel="shard_finalize_kernel", blocks=row_blocks(bufH, S, N),
+                   threads=ROW_THREADS, smem_bytes=0,
+                   bytes=(kept.numel() + out.numel()) * kept.element_size()
+                   + sm.numel() * sm.element_size())
+        return out
 
 
 def occupancy(kernel: str, spec: KernelSpec, plan: Plan, n_space: int,

@@ -33,6 +33,7 @@ from sangnom_tpu_torch.core.clip import Clip
 from sangnom_tpu_torch.ops.sangnom import sangnom2_impl
 from sangnom_tpu_torch.parallel import cross_device
 from sangnom_tpu_torch.parallel.width_sharded import interpolate_field_width_sharded
+from sangnom_tpu_torch.utils.profiling import CALL, span
 
 
 class Mesh:
@@ -229,9 +230,16 @@ def sangnom2_sharded(
     rejected on value.  Use ``sangnom2(pool_compat=True)``.
     """
     del threads
-    return _sharded(clip, mesh, order=order, aa=aa, aac=aac, dh=dh, luma=luma,
-                    chroma=chroma, opt=opt, data_axis=data_axis, space_axis=space_axis,
-                    smooth=smooth, numerics=numerics, pool_compat=pool_compat)
+    with span(CALL) as sp:
+        if sp:
+            sp.set(entry="sangnom2_sharded", path="sharded", frames_in=clip.num_frames)
+        out = _sharded(clip, mesh, order=order, aa=aa, aac=aac, dh=dh, luma=luma,
+                       chroma=chroma, opt=opt, data_axis=data_axis,
+                       space_axis=space_axis, smooth=smooth, numerics=numerics,
+                       pool_compat=pool_compat)
+        if sp:
+            sp.set(frames_out=out.num_frames)
+    return out
 
 
 def _sharded(clip: Clip, mesh: Mesh, order: int = 1, aa: int = 48, aac: int = 0,

@@ -4,6 +4,10 @@ Set the env var SANGNOM_TPU_TORCH_LOG=1 (or configure the 'sangnom_tpu_torch'
 logger) to see one line per filter call: backend, dtype mapping, geometry,
 thresholds (the observable analogue of the reference's silent ctor-time
 backend selection, reference src/SangNom2.cpp:312-329).
+
+Set SANGNOM_TPU_TORCH_TRACE=<dir> to record the port's spans for the whole
+process and write them at exit as a Chrome trace in <dir>
+(sangnom_tpu_torch.utils.profiling).
 """
 
 from __future__ import annotations
