@@ -174,9 +174,9 @@ def phase_kernel_matrix(dk, get_format, KernelSpec, details):
                ("GRAY16", "sse2"), ("YUV420P10", "c"), ("YUV420P10", "sse2"),
                ("GRAYS", "c")]
     # (frames, kept rows, width, stride or None for the next multiple of 32):
-    # 75 frames give 150 fields; 3840 takes the single-buffer route (u8) or
-    # global scratch; stride 1023 gives S = 1023, a partial last column group;
-    # width 5 is below the 7-tap span
+    # 75 frames give 150 fields; 3840 is past one block of the field kernel
+    # (K4 over 4 blocks of a cluster); stride 1023 gives S = 1023, a partial
+    # last column group; width 5 is below the 7-tap span
     shapes = [(3, 9, 61, None), (3, 9, 1920, None), (75, 6, 61, None),
               (2, 6, 3840, None), (3, 9, 1023, 1023), (3, 9, 5, 5)]
     for fmt_name, numerics in formats:
@@ -2274,44 +2274,65 @@ def _reset(dk, pk, sk, ws=None):
         ws.reset_exchanges()
 
 
-WIDE_SWEEP = (2, 4, 8)  # blocks a field of the bob's luma pass in the sweep
+# K4's (k, R) sweep (`wide_k_sweep`), on the cluster route: the maa pass's
+# 24 luma fields of 3840 columns, whose readings set deint_kernel.wide_plan's
+# rule (WIDE_BLOCK, WIDE_ROWS), and the 15360 bob's luma pass
+WIDE_SWEEP_3840 = [(k, r) for k in (2, 3, 4) for r in (2, 4, 8)] + [(4, 16), (8, 4), (8, 8)]
+WIDE_SWEEP_BOB = [(2, 4), (4, 4), (8, 2), (8, 4), (8, 8), (8, 16)]
 
 
-def wide_k_sweep(clip, spec, card: str) -> dict:
-    """The bob's luma pass through K4 (``shard_kernel.full_pass``, offset 0,
-    the cluster route) at the plan's k and at narrower blocks, in turns
-    (ascending, then descending), outputs equal across k: ms a pass, best
-    of 2.  Not the route the filter takes; it says what the least k costs
-    (8-column blocks) against blocks of the 4-column build."""
-    from sangnom_tpu_torch.core.fields import _split_plane
+def wide_k_sweep(name: str, fields, spec, pairs, card: str) -> dict:
+    """K4's woven pass (``shard_kernel.full_pass``, offset 0, the cluster
+    route) over ``fields`` [N, bufH, S] at each (k, R) of ``pairs`` whose
+    cluster the card schedules, in turns (ascending, then descending),
+    outputs equal across (k, R): ms a pass (3 passes a window, best of 2),
+    each plan's build, registers and spill bytes; and the (k, R) that
+    ``deint_kernel.wide_plan`` takes for the shape."""
+    from sangnom_tpu_torch.core.formats import get_format
     from sangnom_tpu_torch.core.geometry import aaf_as_pixel, scaled_aa_thresholds
     from sangnom_tpu_torch.ops import deint_kernel as dk
     from sangnom_tpu_torch.parallel import shard_kernel as sk
 
-    fields = _split_plane(clip.planes[0], True).contiguous()
+    dev = torch.device(DEVICE)
     N, bufH, S = fields.shape
-    aaf = aaf_as_pixel(scaled_aa_thresholds(48, 0, clip.format)[0], clip.format)
-    limit = dk._max_smem_bytes(dk._load(), torch.device(DEVICE))
-    ks = []
-    for k in WIDE_SWEEP:
-        plan = sk.full_plan(k, S // k, bufH, 1, limit)
-        if S % k == 0 and sk.occupancy("full", spec, plan, k, torch.device(DEVICE))["clusters"] > 0:
-            ks.append((k, plan))
-    ref = sk.full_pass(fields, 0, aaf, spec, ks[0][0], S)
-    times = {k: [] for k, _ in ks}
-    for order in (ks, ks[::-1]):
-        for k, _ in order:
-            got = sk.full_pass(fields, 0, aaf, spec, k, S)
+    fmt = get_format("GRAY8")  # the passes are 8-bit
+    aaf = aaf_as_pixel(scaled_aa_thresholds(48, 0, fmt)[0], fmt)
+    limit = dk._max_smem_bytes(dk._load(), dev)
+    cases = []
+    for k, r in pairs:
+        if S % k:
+            continue
+        plan = sk.full_plan(k, S // k, bufH, fields.element_size(), limit, r)
+        occ = sk.occupancy("full", spec, plan, k, dev)
+        if occ["clusters"] > 0:
+            cases.append(((k, r), plan, occ))
+
+    def run(k, r):
+        return sk.full_pass(fields, 0, aaf, spec, k, S, r)
+
+    ref = run(*cases[0][0])
+    times = {kr: [] for kr, _, _ in cases}
+    for order in (cases, cases[::-1]):
+        for (k, r), _, _ in order:
+            got = run(k, r)
             if not torch.equal(got, ref):
-                raise AssertionError(f"[23 wide] bob luma pass at k={k} != k={ks[0][0]}")
+                raise AssertionError(f"[23 wide] {name} at k={k} R={r} != "
+                                     f"k={cases[0][0][0]} R={cases[0][0][1]}")
             del got
-            times[k].append(cuda_ms(lambda k=k: sk.full_pass(fields, 0, aaf, spec, k, S), 1))
-    out = {k: {"ms": min(times[k]), "windows": times[k], "cols": plan.cols,
-               "threads": plan.threads, "route": plan.route} for k, plan in ks}
-    log("[23 wide] bob luma pass (" + f"{N}x{bufH}x{S}" + ") through K4 in turns, outputs "
-        "equal: " + "; ".join(f"k={k} ({v['cols']} columns x {v['threads']} threads, "
-                              f"{v['route']}) {v['ms']:.3f} ms ({v['ms'] / (bufH - 1) * 1e3:.3f} "
-                              f"us a row step)" for k, v in out.items()) + f" | {card}")
+            times[k, r].append(cuda_ms(lambda k=k, r=r: run(k, r), 3))
+    del ref
+    fp = dk._card_plan(S, bufH, S, spec, dev)
+    out = {f"k{k} R{r}": {"ms": min(times[k, r]), "windows": times[k, r], "cols": plan.cols,
+                          "threads": plan.threads, "route": plan.route, **occ}
+           for (k, r), plan, occ in cases}
+    out["plan"] = {"k": fp.k, "R": fp.plan.R, "cluster": fp.plan.cluster}
+    log(f"[23 wide] {name} ({N}x{bufH}x{S}) through K4 in turns, outputs equal: " + "; ".join(
+        f"{kr} ({v['cols']} columns x {v['threads']} threads, {v['route']}, "
+        f"{v['registers']} registers, {v['spill_bytes']} spill bytes) {v['ms']:.3f} ms "
+        f"({v['ms'] / (bufH - 1) * 1e3:.3f} us a row step)"
+        for kr, v in out.items() if kr != "plan")
+        + f" | wide_plan: k={fp.k} R={fp.plan.R} | {card}")
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2326,7 +2347,8 @@ def phase_wide(card: str, bob_ms: float, details) -> dict:
     its ms a call (CUDA events, best of 2) against its bound and the 1080
     bob's ns a column-row; each count set to 0 just before a call and read
     just after."""
-    from sangnom_tpu_torch import bob, sangnom2
+    from sangnom_tpu_torch import bob, get_format, sangnom2
+    from sangnom_tpu_torch.core.fields import _split_plane
     from sangnom_tpu_torch.core.geometry import (
         aaf_as_pixel, buffer_stride_elems, scaled_aa_thresholds, width_tiers)
     from sangnom_tpu_torch.ops import deint_kernel as dk
@@ -2394,8 +2416,17 @@ def phase_wide(card: str, bob_ms: float, details) -> dict:
         if fname == "GRAY16":
             k4_pass = (clip.planes[0], spec, stride, clip.format)
         if mode == "bob":
-            res["bob luma k sweep"] = wide_k_sweep(clip, spec, card)
+            luma = _split_plane(clip.planes[0], True).contiguous()
+            res["bob luma k sweep"] = wide_k_sweep("bob luma pass", luma, spec,
+                                                   WIDE_SWEEP_BOB, card)
+            del luma
         del clip
+    g = torch.Generator(device=DEVICE).manual_seed(3840)
+    maa = torch.randint(0, 256, (24, 1080, 3840), generator=g, device=DEVICE,
+                        dtype=torch.int32).to(torch.uint8)
+    res["maa luma k sweep"] = wide_k_sweep("maa luma pass", maa, KernelSpec.from_format(
+        get_format("GRAY8")), WIDE_SWEEP_3840, card)
+    del maa
 
     # the K4 pass of the dh case alone, against its plain twin (not counted)
     kept, spec, stride, fmt = k4_pass
@@ -2566,8 +2597,8 @@ def main() -> int:
     cases = phase_kernel_matrix(dk, get_format, KernelSpec, details)
     log(f"[3 kernel vs plain] {cases} cases bit-equal on the card "
         f"(u8/u16/10-bit/f32, c/sse2, offsets 0/1/per-frame, interlaced "
-        f"none/tff/bff, widths 61/1920/3840/1023 unpadded/5, 150 fields; routes "
-        f"double, single and global) in {time.perf_counter() - t0:.1f} s")
+        f"none/tff/bff, widths 61/1920/3840 (K4 over 4 blocks)/1023 unpadded/5, "
+        f"150 fields) in {time.perf_counter() - t0:.1f} s")
 
     # 4. main path at full size
     fmt = get_format(FMT)

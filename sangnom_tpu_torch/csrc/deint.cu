@@ -39,10 +39,9 @@
 // Barriers.  Route "double" (dbuf = 1) has two shared [9][pitch_b] buffers
 // and ONE barrier a step: step b writes buf[b & 1] before its barrier and
 // reads it after.  buf[b & 1] was last read by step b-2's box, which every
-// thread finished before it reached step b-1's barrier.  Routes "single"
-// (one buffer in shared memory) and "global" (buf and rp in global scratch,
-// for planes too wide for shared memory) add a barrier at the top of the
-// step, before buf is overwritten.  The kept-row ring has 4 slots; row r
+// thread finished before it reached step b-1's barrier.  Route "single" (one
+// buffer, for planes whose two buffers do not fit) adds a barrier at the top
+// of the step, before buf is overwritten.  The kept-row ring has 4 slots; row r
 // sits in slot r & 3 and is placed before the barrier of step r-3 (rows 0-3
 // before the loop).  Step b reads row b+1, placed before step b-2's
 // barrier, and overwrites slot (b+3) & 3, whose row b-1 was last read at
@@ -52,8 +51,12 @@
 // What bounds it: the serial row walk and the integer operations per pixel,
 // not device-memory bytes, since every input row is read once and every
 // output row written once.  One block per field fills at most 120 of the 132
-// SMs at 1080p luma (120 fields); splitting a field's columns across the
-// blocks of a thread-block cluster is later work.
+// SMs at 1080p luma (120 fields).  A block takes at most 512 threads of 4
+// columns (2048 smoothed columns): a wider field's columns are split over
+// the blocks of a thread-block cluster by shard.cu's K4, each block within
+// the 4-column build (ops/deint_kernel.wide_plan).  An 8-column build, capped
+// at 64 registers a thread, spilled its carry and took 5.6x the 4-column
+// build's row step.
 //
 // Exactness: the numerics (common.cuh) keep the reference's order of float
 // operations; the vertical sum is (sm + raw[b]) + raw[b+1] and the box sum
@@ -65,8 +68,8 @@ namespace {
 
 using namespace sno;
 
-// One block per field; COLS contiguous columns per thread cover the S
-// smoothed columns.
+// One block per field; COLS (1 or 4) contiguous columns per thread cover
+// the S smoothed columns.
 //   src      kept rows: field f's row r is at
 //            src[j*in_frame_stride + (start + r*row_step)*w], where
 //            interlaced == 0: j = f, start = 0, row_step = 1;
@@ -74,18 +77,14 @@ using namespace sno;
 //            j = f/2, field bit b = f%2, start = b (tff) or 1-b, row_step = 2
 //   dst      weave: [N, 2*bufH, w] woven plane; else [N, bufH-1, w]
 //   offsets  per-field kept-row offset (0/1), read when static_offset < 0
-//   gbuf     global [N, 9, pitch_b] smoothing rows and grp [N, 9, pitch_p]
-//            raw slices, or null for shared memory
 //   pitch_b  buf row pitch (elements, a multiple of 4, >= S + COLS + 8);
 //   pitch_r  ring row pitch (a multiple of 16, >= w + COLS + 8);
 //   pitch_p  rp row pitch (a multiple of 16, >= blockDim.x * COLS)
 //   dbuf     1: two shared buffers, one barrier a step
 template <typename T, bool SSE2, int COLS>
-__global__ void __launch_bounds__(COLS >= 8 ? 1024 : 512, 1)
+__global__ void __launch_bounds__(512, 1)
 deint_kernel(const T* __restrict__ src, T* __restrict__ dst,
-             const int32_t* __restrict__ offsets,
-             typename Ops<T, SSE2>::acc* __restrict__ gbuf, T* __restrict__ grp,
-             int bufH, int w, int S, int pitch_b, int pitch_r, int pitch_p,
+             const int32_t* __restrict__ offsets, int bufH, int w, int S, int pitch_b, int pitch_r, int pitch_p,
              long long in_frame_stride, int interlaced, int weave,
              int static_offset, int dbuf, typename Ops<T, SSE2>::acc aaf) {
   using O = Ops<T, SSE2>;
@@ -114,11 +113,10 @@ deint_kernel(const T* __restrict__ src, T* __restrict__ dst,
     row_step = 1;
   }
   const size_t buf_elems = (size_t)kMaps * pitch_b;
-  A* buf = gbuf ? gbuf + (long long)f * buf_elems : reinterpret_cast<A*>(smem);
-  const size_t rp_off = gbuf ? 0 : (dbuf ? 2 : 1) * buf_elems * sizeof(A);
-  T* rp = grp ? grp + (long long)f * kMaps * pitch_p : reinterpret_cast<T*>(smem + rp_off);
-  T* ring = reinterpret_cast<T*>(smem + rp_off +
-                                 (grp ? 0 : sizeof(T) * (size_t)kMaps * pitch_p));
+  A* buf = reinterpret_cast<A*>(smem);
+  const size_t rp_off = (dbuf ? 2 : 1) * buf_elems * sizeof(A);
+  T* rp = reinterpret_cast<T*>(smem + rp_off);
+  T* ring = reinterpret_cast<T*>(smem + rp_off + sizeof(T) * (size_t)kMaps * pitch_p);
   const int off = !weave ? 0 : static_offset >= 0 ? static_offset : offsets[f];
   T* fdst = dst + (long long)f * (weave ? 2 * bufH : bufH - 1) * w;
 
@@ -251,8 +249,8 @@ deint_kernel(const T* __restrict__ src, T* __restrict__ dst,
 
 template <typename T, bool SSE2, int COLS>
 cudaError_t launch(const void* src, void* dst, const int32_t* offsets,
-                   void* gbuf, void* grp, int n_fields, int bufH, int w, int S,
-                   int pitch_b, int pitch_r, int pitch_p,
+                   int n_fields, int bufH, int w, int S, int pitch_b,
+                   int pitch_r, int pitch_p,
                    long long in_frame_stride, int interlaced, int weave,
                    int static_offset, int dbuf, double aaf, int threads,
                    int smem_bytes, cudaStream_t stream) {
@@ -262,24 +260,22 @@ cudaError_t launch(const void* src, void* dst, const int32_t* offsets,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return e;
   kern<<<n_fields, threads, smem_bytes, stream>>>(
-      static_cast<const T*>(src), static_cast<T*>(dst), offsets,
-      static_cast<A*>(gbuf), static_cast<T*>(grp), bufH, w, S, pitch_b,
-      pitch_r, pitch_p, in_frame_stride, interlaced, weave, static_offset,
+      static_cast<const T*>(src), static_cast<T*>(dst), offsets, bufH, w, S,
+      pitch_b, pitch_r, pitch_p, in_frame_stride, interlaced, weave, static_offset,
       dbuf, static_cast<A>(aaf));
   return cudaGetLastError();
 }
 
 template <typename T, bool SSE2>
 cudaError_t launch_cols(int cols, const void* src, void* dst,
-                        const int32_t* offsets, void* gbuf, void* grp,
-                        int n_fields, int bufH, int w, int S, int pitch_b,
-                        int pitch_r, int pitch_p, long long in_frame_stride,
+                        const int32_t* offsets, int n_fields, int bufH,
+                        int w, int S, int pitch_b, int pitch_r, int pitch_p, long long in_frame_stride,
                         int interlaced, int weave, int static_offset, int dbuf,
                         double aaf, int threads, int smem_bytes,
                         cudaStream_t stream) {
 #define SNO_COLS(C)                                                          \
   case C:                                                                    \
-    return launch<T, SSE2, C>(src, dst, offsets, gbuf, grp, n_fields, bufH,  \
+    return launch<T, SSE2, C>(src, dst, offsets, n_fields, bufH,             \
                               w, S, pitch_b, pitch_r, pitch_p,               \
                               in_frame_stride, interlaced, weave,            \
                               static_offset, dbuf, aaf, threads, smem_bytes, \
@@ -287,7 +283,6 @@ cudaError_t launch_cols(int cols, const void* src, void* dst,
   switch (cols) {
     SNO_COLS(1)
     SNO_COLS(4)
-    SNO_COLS(8)
     default:
       return cudaErrorInvalidValue;
   }
@@ -309,17 +304,16 @@ const char* sno_error_string(int err) {
 }
 
 // Launches the kernel on `stream`; returns the cudaError_t of the launch.
-// dtype: 0 uint8, 1 uint16, 2 float32.  cols: 1, 4 or 8.  The pitches, dbuf
+// dtype: 0 uint8, 1 uint16, 2 float32.  cols: 1 or 4.  The pitches, dbuf
 // and smem_bytes come from ops/deint_kernel.launch_plan.
 int sno_deint_launch(int dtype, int sse2, int cols, const void* src,
-                     void* dst, const int32_t* offsets, void* gbuf, void* grp,
-                     int n_fields, int bufH, int w, int S, int pitch_b,
+                     void* dst, const int32_t* offsets, int n_fields, int bufH, int w, int S, int pitch_b,
                      int pitch_r, int pitch_p, long long in_frame_stride,
                      int interlaced, int weave, int static_offset, int dbuf,
                      double aaf, int threads, int smem_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SNO_ARGS                                                            \
-  cols, src, dst, offsets, gbuf, grp, n_fields, bufH, w, S, pitch_b,        \
+  cols, src, dst, offsets, n_fields, bufH, w, S, pitch_b,                   \
       pitch_r, pitch_p, in_frame_stride, interlaced, weave, static_offset,  \
       dbuf, aaf, threads, smem_bytes, st
   cudaError_t e;

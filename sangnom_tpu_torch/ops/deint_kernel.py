@@ -7,15 +7,17 @@
 ``_interp_chunk``).  On a CPU tensor each wrapper runs its plain PyTorch
 version instead; on a CUDA tensor it launches the kernel or raises.
 
-One block walks a field, so the kernel takes at most ``MAX_COLS`` (8192)
-smoothed columns.  A wider field (`wide_plan`) runs as the width-sharded
-kernel K4 runs a field (``parallel.shard_kernel.full_pass``): the plane
-edge-padded to a width of k shards, ``k`` blocks of a field in one
-thread-block cluster (one launch a pass; past ``MAX_CLUSTER`` blocks, or
-where the card cannot schedule the cluster, one launch a chunk of rows),
-the output cropped back.  Its launches count in
-``shard_kernel.LAUNCHES["full"]``, not in ``LAUNCHES``; on a CPU tensor
-`_wide` runs K4's plain version with the same k, padding and crop.
+One block walks a field, so the kernel takes at most ``FIELD_COLS`` (2048)
+smoothed columns, 4 a thread.  A wider field (`wide_plan`) runs as the
+width-sharded kernel K4 runs a field (``parallel.shard_kernel.full_pass``):
+the plane edge-padded to a width of k shards, ``k`` blocks of a field, each
+of 4-column threads, in one thread-block cluster (one launch a pass; past
+``MAX_CLUSTER`` blocks, or where the card cannot schedule the cluster, one
+launch a chunk of rows), the output cropped back.  Its launches count in
+``shard_kernel.LAUNCHES["full"]``, not in ``LAUNCHES``, and its fields on
+the card's cluster route in the ``cluster_fields`` counter; on a CPU tensor
+`_wide` runs K4's plain version with the same k, padding and crop (and
+counts nothing).
 
 The kernel library (this kernel and the pool kernels of ``ops/pool_kernel``)
 is compiled with nvcc for sm_90a at first use, one nvcc per source in
@@ -86,9 +88,24 @@ _BUILD_LOCK = threading.RLock()
 # fails with "invalid argument").
 LAUNCH_LOCK = threading.Lock()
 
-# The most smoothed columns one block of the field kernel takes
-# (`launch_shape`); wider fields take the wide route (`wide_plan`).
+# The most columns one block of a one-block walk takes (`launch_shape`, 8 a
+# thread past 2048): the pool walk's reach (ops/pool_kernel.walk_plan).
 MAX_COLS = 8192
+# The most smoothed columns one block of the field kernel takes: 512 threads
+# of 4 columns.  Wider fields take the wide route (`wide_plan`), each block
+# within the 4-column build (``shard_kernel.MAX_BLOCK_4``): one block of
+# 8-column threads, capped at 64 registers, spilled its carry and walked a
+# 3840-column field 5.6x slower a row step than the 4-column build at 1920.
+FIELD_COLS = 2048
+# The wide route's blocks, halos included: at most WIDE_BLOCK columns (256
+# threads of 4 columns) where a cluster of at most MAX_CLUSTER blocks holds
+# the field, else at most shard_kernel.MAX_BLOCK_4 (512 threads); a halo
+# exchange every WIDE_ROWS rows.  The fastest of the (k, R) sweep of K4's
+# pass at 3840 x 1080 kept rows on an H100 (chip_smoke.wide_k_sweep; PERF.md
+# section 6): 24 fields 3.98 ms at 4 blocks of 960 columns and R 8, 6.20 at
+# 2 blocks of 1920 and R 4; 120 fields alike at 2 and 4 blocks.
+WIDE_BLOCK = 1016
+WIDE_ROWS = 8
 # An H100's opt-in shared memory a block, for plans made away from the card.
 H100_SMEM = 232448
 _CLUSTER_OK: dict = {}  # (device, spec, k, K4 plan) -> a cluster fits the card
@@ -230,7 +247,7 @@ def _load() -> ctypes.CDLL:
         i, p = ctypes.c_int, ctypes.c_void_p
         lib.sno_deint_launch.argtypes = [
             i, i, i,  # dtype, sse2, cols
-            p, p, p, p, p,  # src, dst, offsets, global buffer and raw scratch
+            p, p, p,  # src, dst, offsets
             i, i, i, i,  # n_fields, bufH, w, S
             i, i, i,  # pitch_b, pitch_r, pitch_p
             ctypes.c_longlong,  # in_frame_stride
@@ -260,13 +277,15 @@ def _max_smem_bytes(lib: ctypes.CDLL, device: torch.device) -> int:
 
 
 def launch_shape(S: int) -> tuple[int, int]:
-    """(columns per thread, threads per block) covering S smoothed columns:
-    thread t owns the contiguous columns t*cols .. t*cols+cols-1; one column
-    per thread up to 512 columns, else 4 columns per thread (<= 512
-    threads), else 8 (<= 1024 threads).  The kernel is instantiated for
-    exactly these column counts.  (A 2-column build spilled 1 KB per thread
-    under ptxas for sm_90a and ran the 1080 chroma launch 5x slower than 4
-    columns on an H100: 12.0 against 2.4 ms.)"""
+    """(columns per thread, threads per block) covering S columns of a
+    one-block walk: thread t owns the contiguous columns t*cols ..
+    t*cols+cols-1; one column per thread up to 512 columns, else 4 columns
+    per thread (<= 512 threads), else 8 (<= 1024 threads).  The field
+    kernel is instantiated for 1 and 4 columns and takes at most
+    ``FIELD_COLS``; the pool walk (``ops/pool_kernel``) for all three.  (A
+    2-column build spilled 1 KB per thread under ptxas for sm_90a and ran
+    the 1080 chroma launch 5x slower than 4 columns on an H100: 12.0
+    against 2.4 ms.)"""
     for cols, max_threads in ((1, 512), (4, 512), (8, 1024)):
         n = -(-S // cols)
         if n <= max_threads:
@@ -279,8 +298,7 @@ class LaunchPlan(NamedTuple):
     """How one launch lays out its memory (see ``csrc/deint.cu``).
 
     ``route``: "double" (two shared smoothing buffers, one barrier a row
-    step), "single" (one shared buffer, two barriers) or "global" (buffer and
-    raw slices in global scratch, two barriers).  ``pitch_b``: elements of a
+    step) or "single" (one shared buffer, two barriers).  ``pitch_b``: elements of a
     smoothing-buffer row (4 pad columns, S, and the right pad);
     ``pitch_r``: of a kept-row ring row; ``pitch_p``: of a raw-slice row.
     ``smem_bytes``: the dynamic shared memory the launch asks for."""
@@ -301,8 +319,13 @@ def _round_up(x: int, m: int) -> int:
 def launch_plan(w: int, S: int, elem: int, limit: int) -> LaunchPlan:
     """The launch plan for a plane of width ``w``, ``S`` smoothed columns
     and ``elem``-byte samples under a block's shared-memory ``limit``: the
-    first route whose shared memory fits, in the order double, single,
-    global.  Raises ValueError if not even the kept-row ring fits."""
+    first route whose shared memory fits, double or single (on an H100 the
+    single route fits every width up to ``FIELD_COLS``).  Raises ValueError
+    past ``FIELD_COLS`` smoothed columns (the wide route's, `wide_plan`) or
+    where neither route fits."""
+    if S > FIELD_COLS:
+        raise ValueError(f"deint kernel: {S} smoothed columns take the wide route "
+                         f"(wide_plan), one block at most {FIELD_COLS}")
     cols, threads = launch_shape(S)
     pitch_b = _round_up(S + cols + 8, 4)
     pitch_r = _round_up(w + cols + 8, 16)
@@ -310,8 +333,7 @@ def launch_plan(w: int, S: int, elem: int, limit: int) -> LaunchPlan:
     buf = _MAPS * pitch_b * 4
     rp = _MAPS * pitch_p * elem
     ring = _RING_ROWS * pitch_r * elem
-    for route, smem in (("double", 2 * buf + rp + ring), ("single", buf + rp + ring),
-                        ("global", ring)):
+    for route, smem in (("double", 2 * buf + rp + ring), ("single", buf + rp + ring)):
         if smem <= limit:
             return LaunchPlan(cols, threads, route, smem, pitch_b, pitch_r, pitch_p)
     raise ValueError(f"deint kernel: plane width {w} exceeds shared memory")
@@ -320,7 +342,7 @@ def launch_plan(w: int, S: int, elem: int, limit: int) -> LaunchPlan:
 class FieldPlan(NamedTuple):
     """How a field pass runs on the card.  ``k`` 1: K1 over S smoothed
     columns, ``W_loc`` = S, ``plan`` a `LaunchPlan`.  ``k`` > 1 (S past
-    ``MAX_COLS``): K4 over ``k`` shards of ``W_loc`` columns of the plane
+    ``FIELD_COLS``): K4 over ``k`` shards of ``W_loc`` columns of the plane
     edge-padded to ``width`` = k * W_loc, ``plan`` a
     ``parallel.shard_kernel.Plan`` (its ``cluster``: one launch a pass, else
     a launch a chunk of R rows)."""
@@ -339,24 +361,24 @@ def wide_plan(w: int, bufH: int, stride: int, spec: KernelSpec, limit: int,
     """The plan of a pass over fields of width ``w`` and ``bufH`` kept rows
     at buffer ``stride``, under a block's shared-memory ``limit``.
 
-    S = ``width_tiers(...)[2]`` up to ``MAX_COLS``: K1's plan, as ever.
-    Past it: the least k whose K4 plan fits (every block, own columns and
-    halos, within ``shard_kernel.MAX_BLOCK`` columns), over the plane padded
-    to the stride itself where the clamp there is observable (stride <
-    ``creep_bound``; k then divides it) and else to the least multiple of k
-    at or past ``creep_bound``: as ``parallel.sharding._sharded_pad_width``
-    pads a 1 x k mesh, clamping there changes no output column.  The
-    cluster route up to ``MAX_CLUSTER`` blocks (``cluster`` None), the chunk
-    route beyond or with ``cluster`` False.  A pure function of the shapes."""
+    S = ``width_tiers(...)[2]`` up to ``FIELD_COLS``: K1's plan, as ever.
+    Past it: K4 over k >= 2 blocks of 4-column threads, every block (own
+    columns and halos, a halo exchange every ``WIDE_ROWS`` rows) within
+    ``WIDE_BLOCK`` columns at the least such k up to ``MAX_CLUSTER``, else
+    within ``shard_kernel.MAX_BLOCK_4`` at the least such k (3840 gives k =
+    4, 15360 k = 8), over the plane padded to the stride itself where the
+    clamp there is observable (stride < ``creep_bound``; k then divides it)
+    and else to the least multiple of k at or past ``creep_bound``: as
+    ``parallel.sharding._sharded_pad_width`` pads a 1 x k mesh, clamping
+    there changes no output column.  The cluster route up to
+    ``MAX_CLUSTER`` blocks (``cluster`` None), the chunk route beyond or
+    with ``cluster`` False.  A pure function of the shapes."""
     from sangnom_tpu_torch.parallel import shard_kernel as sk
 
     elem = _storage_dtype(spec).itemsize
     S = width_tiers(w, bufH, stride, spec)[2]
-    if S <= MAX_COLS:
+    if S <= FIELD_COLS:
         return FieldPlan(1, S, launch_plan(w, S, elem, limit))
-    if bufH < 2:
-        raise ValueError(f"deint kernel: a plane wider than {MAX_COLS} columns needs "
-                         f"at least 2 kept rows, got {bufH}")
     creep = creep_bound(w, bufH, spec)
 
     def padded(k):
@@ -366,12 +388,16 @@ def wide_plan(w: int, bufH: int, stride: int, spec: KernelSpec, limit: int,
         width = padded(k)
         if width % k:
             return None
-        return k, width // k, sk.cluster_rows(k, width // k, bufH - 1)[1]
+        return k, width // k, sk.cluster_rows(k, width // k, bufH - 1, WIDE_ROWS)[1]
 
-    k = sk.least_split(cut, padded(1), k0=2)
+    k = next((j for j in range(2, sk.MAX_CLUSTER + 1)
+              if (c := cut(j)) and sk.block_width(*c) <= WIDE_BLOCK), None)
+    if k is None:
+        k = sk.least_split(cut, padded(1), sk.MAX_BLOCK_4, k0=2)
     use = cluster is not False and k <= sk.MAX_CLUSTER
     W_loc = padded(k) // k
-    return FieldPlan(k, W_loc, sk.full_plan(k, W_loc, bufH, elem, limit, cluster=use))
+    return FieldPlan(k, W_loc, sk.full_plan(k, W_loc, bufH, elem, limit, WIDE_ROWS,
+                                            cluster=use))
 
 
 def _card_plan(w: int, bufH: int, stride: int, spec: KernelSpec,
@@ -395,7 +421,7 @@ def _card_plan(w: int, bufH: int, stride: int, spec: KernelSpec,
 
 def _wide(kept: torch.Tensor, offset, aaf, spec: KernelSpec, stride: int,
           interlaced_tff: bool | None = None) -> torch.Tensor:
-    """The wide route, for fields past one block (S > ``MAX_COLS``):
+    """The wide route, for fields past one block (S > ``FIELD_COLS``):
     ``kept`` [N, bufH, w] fields (an interlaced plane with
     ``interlaced_tff``, split first) -> the woven plane (``offset`` 0, 1 or
     per field) or, with ``offset`` None, the interpolated rows; K4 over
@@ -423,14 +449,16 @@ def _wide(kept: torch.Tensor, offset, aaf, spec: KernelSpec, stride: int,
     kept = kept.contiguous()
     offs = None if offset is None else fs._offsets(offset, kept)
     if on_card:
-        out = sk.full_pass(kept, offs, aaf, spec, fp.k, w, cluster=fp.plan.cluster)
+        out = sk.full_pass(kept, offs, aaf, spec, fp.k, w, WIDE_ROWS, fp.plan.cluster)
+        if fp.plan.cluster:
+            count("cluster_fields", N)
     else:
-        out = fs._fused_full(kept, aaf, spec, fp.k, w, None, offs)
+        out = fs._fused_full(kept, aaf, spec, fp.k, w, WIDE_ROWS, offs)
     return out if width == w else out[..., :w].contiguous()
 
 
 def _is_wide(w: int, bufH: int, stride: int, spec: KernelSpec) -> bool:
-    return width_tiers(w, bufH, stride, spec)[2] > MAX_COLS
+    return width_tiers(w, bufH, stride, spec)[2] > FIELD_COLS
 
 
 def _storage_dtype(spec: KernelSpec) -> torch.dtype:
@@ -459,12 +487,6 @@ def _launch(src: torch.Tensor, out: torch.Tensor, spec: KernelSpec, aaf,
         _, _, S = width_tiers(w, bufH, stride, spec)
         lib = _load()
         plan = launch_plan(w, S, src.element_size(), _max_smem_bytes(lib, device))
-        gbuf = grp = None
-        if plan.route == "global":
-            gbuf = torch.empty((n_fields, _MAPS, plan.pitch_b), dtype=spec.acc_dtype,
-                               device=device)
-            grp = torch.empty((n_fields, _MAPS, plan.pitch_p), dtype=src.dtype,
-                              device=device)
         offs = None
         if isinstance(offset, int):
             if offset not in (0, 1):
@@ -483,8 +505,6 @@ def _launch(src: torch.Tensor, out: torch.Tensor, spec: KernelSpec, aaf,
                 _DTYPE_CODE[src.dtype], int(spec.sse2 and not spec.is_float), plan.cols,
                 src.data_ptr(), out.data_ptr(),
                 None if offs is None else offs.data_ptr(),
-                None if gbuf is None else gbuf.data_ptr(),
-                None if grp is None else grp.data_ptr(),
                 n_fields, bufH, w, S, plan.pitch_b, plan.pitch_r, plan.pitch_p,
                 in_frame_stride, interlaced, int(weave), static_offset,
                 int(plan.route == "double"), float(aaf), plan.threads,

@@ -21,7 +21,8 @@ Two routes, never chosen silently:
            pass.  A cluster the card cannot schedule raises RuntimeError.
   chunk    a mesh row of more shards than a cluster holds: the same kernel,
            one launch per chunk of R rows, the carried row passing through
-           device memory between launches (ceil((bufH-1) / R) launches).
+           device memory between launches (ceil((bufH-1) / R) launches, one
+           for one kept row).
   slot     ``full_chunk`` / ``smooth_chunk``: the chunk route's kernels over
            one shard (no halo in the launch: the caller's slab carries it),
            one launch a call.
@@ -46,6 +47,9 @@ LAUNCHES = {"full": 0, "smooth": 0, "prepare": 0, "finalize": 0}
 MAX_CLUSTER = 8
 # The most columns a block takes, its halos included (`shard_shape`).
 MAX_BLOCK = 8184
+# The most columns a block of 4-column threads takes (`shard_shape`): the
+# widest block of the main path's wide field route (ops/deint_kernel).
+MAX_BLOCK_4 = 2040
 # Rows between halo exchanges when the caller gives none: the fastest R of
 # the 1x4 1080 passes on an H100 (tools/shard_ab.py; PERF.md section 6).
 CLUSTER_ROWS = 4
@@ -77,7 +81,7 @@ def shard_shape(W_c: int) -> tuple[int, int]:
     8184, and 8 / cols threads more: K4 fetches a block's kept rows with 4
     more columns at each end, thread t the cols columns from t*cols - 4;
     threads a multiple of 32, at most 512 (1 and 4 columns) or 1024 (8)."""
-    for cols, max_cols in ((1, 64), (4, 2040), (8, MAX_BLOCK)):
+    for cols, max_cols in ((1, 64), (4, MAX_BLOCK_4), (8, MAX_BLOCK)):
         if W_c <= max_cols:
             return cols, _round_up(-(-W_c // cols) + 8 // cols, 32)
     raise ValueError(f"sharded kernel: {W_c} columns in a block (at most 8184)")
@@ -173,7 +177,7 @@ def full_plan(n_space: int, W_loc: int, bufH: int, elem: int, limit: int,
     buf = _MAPS * pitch_b * 4
     rp = _MAPS * pitch_p * elem
     ring = _RING_ROWS * pitch_r * elem
-    launches = 1 if cluster else -(-n_steps // R)
+    launches = 1 if cluster else max(1, -(-n_steps // R))
     for route, smem in (("double", 2 * buf + rp + ring + xb),
                         ("single", buf + rp + ring + xb), ("global", ring + xb)):
         if smem <= limit:
@@ -286,6 +290,7 @@ def _launch_full(lib, plan: Plan, spec: KernelSpec, kept, out, weave_args, scrat
         LAUNCHES["full"] += 1
         if sp:
             sp.set(kernel="shard_full_kernel", blocks=N * n_space, threads=plan.threads,
+                   route="cluster" if plan.cluster else "chunk", k=n_space,
                    smem_bytes=plan.smem_bytes,
                    bytes=(kept.numel() + out.numel()) * kept.element_size())
 
@@ -314,8 +319,9 @@ def full_pass(kept: torch.Tensor, offsets, aaf, spec: KernelSpec, n_space: int,
     if not plan.cluster:
         carry = [torch.empty((N, _MAPS, S), dtype=spec.acc_dtype, device=kept.device)
                  for _ in range(2)]
+    # one kept row: one launch over no steps, which weaves the row
     spans = [(1, bufH)] if plan.cluster else [
-        (lo, min(lo + plan.R, bufH)) for lo in range(1, bufH, plan.R)]
+        (lo, min(lo + plan.R, bufH)) for lo in range(1, max(bufH, 2), plan.R)]
     with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
         for k, (lo, hi) in enumerate(spans):
             _launch_full(lib, plan, spec, kept, out, weave_args, scratch,

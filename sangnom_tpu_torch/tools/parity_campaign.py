@@ -58,7 +58,7 @@ CASES = [
     ("GRAY8", 1919, 1080, 1, dict(order=2)),  # odd width: a partial column group
     ("YUVA420P8", 640, 480, 1, dict(order=1, dh=True)),  # alpha + dh
     ("YUV411P8", 640, 480, 1, dict(order=1, aa=48, aac=48)),  # 4:1:1 chroma
-    # 4K: K1's single or global launch route and its 8-column build
+    # 4K: the luma on the wide route (K4 over a cluster of 4-column blocks)
     ("YUV420P8", 3840, 2160, 2, dict(order=1, aa=48, aac=48)),
     ("GRAY16", 3840, 1080, 1, dict(order=2, dh=True)),
 ]

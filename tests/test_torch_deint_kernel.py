@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 from sangnom_tpu_torch.core.formats import get_format  # noqa: E402
 from sangnom_tpu_torch.ops import deint_kernel as dk  # noqa: E402
 from sangnom_tpu_torch.ops.primitives import KernelSpec  # noqa: E402
+from sangnom_tpu_torch.parallel import shard_kernel as sk  # noqa: E402
 
 
 def _rand(rng, shape, fmt):
@@ -139,24 +140,33 @@ def test_launch_shape_covers_width():
 
 LIMIT = 227 * 1024  # the H100's opt-in shared memory a block, 232448 bytes
 
-# S -> route for u8, u16, f32 (w = S), and the bytes of each route:
-# 2 * buf + raw slice + ring, buf + raw slice + ring, or the ring alone.
+# (S, shared-memory limit) -> route for u8, u16, f32 (w = S), or None where
+# neither route fits, and the bytes of each route: 2 * buf + raw slice +
+# ring, or buf + raw slice + ring.  The field kernel takes at most 2048
+# smoothed columns, where the single route fits an H100 at every sample
+# size; smaller limits reach the refusal.
 PLAN_ROUTES = {
-    61: ("double", "double", "double"),
-    1024: ("double", "double", "double"),
-    1920: ("double", "double", "single"),
-    3840: ("single", "global", "global"),
-    6200: ("global", "global", "global"),
+    (61, LIMIT): ("double", "double", "double"),
+    (1024, LIMIT): ("double", "double", "double"),
+    (1920, LIMIT): ("double", "double", "single"),
+    (2048, LIMIT): ("double", "double", "single"),
+    (2048, 128 * 1024): ("single", "single", None),
+    (2048, 64 * 1024): (None, None, None),
 }
 
 
-@pytest.mark.parametrize("S", sorted(PLAN_ROUTES))
+@pytest.mark.parametrize("S,limit", sorted(PLAN_ROUTES), ids=str)
 @pytest.mark.parametrize("elem", [1, 2, 4])
-def test_launch_plan_route_and_bytes(S, elem):
-    plan = dk.launch_plan(S, S, elem, LIMIT)
+def test_launch_plan_route_and_bytes(S, limit, elem):
+    route = PLAN_ROUTES[S, limit][{1: 0, 2: 1, 4: 2}[elem]]
+    if route is None:
+        with pytest.raises(ValueError, match="exceeds shared memory"):
+            dk.launch_plan(S, S, elem, limit)
+        return
+    plan = dk.launch_plan(S, S, elem, limit)
     cols, threads = dk.launch_shape(S)
     assert (plan.cols, plan.threads) == (cols, threads)
-    assert plan.route == PLAN_ROUTES[S][{1: 0, 2: 1, 4: 2}[elem]]
+    assert plan.route == route
     # pitches: 4 left pads, the right pads, 16-byte rows
     assert plan.pitch_b >= S + cols + 8 and plan.pitch_b % 4 == 0
     assert plan.pitch_r >= S + cols + 8 and plan.pitch_r % 16 == 0
@@ -164,13 +174,10 @@ def test_launch_plan_route_and_bytes(S, elem):
     buf = 9 * plan.pitch_b * 4
     rp = 9 * plan.pitch_p * elem
     ring = 4 * plan.pitch_r * elem
-    want = {"double": 2 * buf + rp + ring, "single": buf + rp + ring,
-            "global": ring}[plan.route]
-    assert plan.smem_bytes == want <= LIMIT
+    want = {"double": 2 * buf + rp + ring, "single": buf + rp + ring}[plan.route]
+    assert plan.smem_bytes == want <= limit
     if plan.route != "double":  # the plan takes the first route that fits
-        assert 2 * buf + rp + ring > LIMIT
-    if plan.route == "global":
-        assert buf + rp + ring > LIMIT
+        assert 2 * buf + rp + ring > limit
 
 
 def test_launch_plan_main_path_bytes():
@@ -180,7 +187,11 @@ def test_launch_plan_main_path_bytes():
     assert dk.launch_plan(960, 1024, 1, LIMIT) == dk.LaunchPlan(
         4, 256, "double", 87712, 1036, 976, 1024)
     with pytest.raises(ValueError, match="exceeds shared memory"):
-        dk.launch_plan(8000, 8000, 4, 64 * 1024)
+        dk.launch_plan(2048, 2048, 4, 16 * 1024)
+    # one block takes at most FIELD_COLS; wider fields take the wide route
+    assert dk.FIELD_COLS == 2048
+    with pytest.raises(ValueError, match="wide route"):
+        dk.launch_plan(2049, 2049, 1, LIMIT)
 
 
 # --- on the card -----------------------------------------------------------
@@ -216,12 +227,15 @@ def test_kernel_matches_plain_on_card(cuda, fmt_name, sse2, offset, tff, w):
         off = off.to(cuda)
     spec = KernelSpec.from_format(fmt, sse2=sse2)
     # 1023 and 5 unpadded: S not a multiple of 4, and a plane below the
-    # 7-tap span; 3840 takes the single-buffer route (u8) or global scratch
+    # 7-tap span; 3840 is past one block: K4 over 4 blocks of a cluster
     stride = w if w in UNPADDED else -(-w // 32) * 32
-    before = dk.LAUNCHES
+    wide = dk._is_wide(w, bufH, stride, spec)
+    assert wide == (w == 3840)
+    before, full = dk.LAUNCHES, sk.LAUNCHES["full"]
     got = dk.deinterlace_field_batch_fused(src, off, _aaf(fmt), spec, stride,
                                            interlaced_tff=tff)
-    assert dk.LAUNCHES == before + 1
+    assert dk.LAUNCHES == before + (not wide)
+    assert sk.LAUNCHES["full"] == full + wide
     want = dk.deinterlace_field_batch_plain(src, off, _aaf(fmt), spec, stride,
                                             interlaced_tff=tff)
     torch.cuda.synchronize()
@@ -236,9 +250,9 @@ def test_kernel_matches_plain_on_card(cuda, fmt_name, sse2, offset, tff, w):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,bufH,w,stride", [
     (150, 5, 40, 64),        # more fields than the card has SMs
-    (2, 4, 6200, 6208),      # smoothed rows too wide for shared memory
+    (2, 4, 6200, 6208),      # past one block: K4 over 8 blocks
     (2, 1, 16, 32),          # one kept row: weave only
-    (2, 6, 3840, 3840),      # 4K luma: one shared buffer, two barriers
+    (2, 6, 3840, 3840),      # 4K luma: K4 over 4 blocks of a cluster
     (3, 7, 1023, 1023),      # S = 1023: the last thread owns 3 columns
     (4, 6, 5, 5),            # narrower than the 7-tap span
     (2, 2, 700, 700),        # two kept rows: one step, no row ahead

@@ -1,9 +1,10 @@
-"""Planes wider than one block of the port's kernels (more than 8192
-smoothed columns), against sangnom_tpu, bit for bit, float included.
+"""Planes wider than one block of the port's kernels (more than 2048
+smoothed columns for the field kernel, 8192 for the pool walk), against
+sangnom_tpu, bit for bit, float included.
 
 On the card a field past one block runs as the width-sharded kernel K4 runs
-a field (``deint_kernel.wide_plan``: k blocks of a field in a cluster, the
-plane edge-padded and the output cropped), the pool walk past one block
+a field (``deint_kernel.wide_plan``: k blocks of 4-column threads of a field
+in a cluster, the plane edge-padded and the output cropped), the pool walk past one block
 splits a map's row over a cluster (``pool_kernel.walk_plan``), and a
 sharded route splits each shard that is too wide into k blocks
 (``shard_kernel.split_count``).  On the CPU the wrappers run their plain
@@ -26,7 +27,7 @@ torch = pytest.importorskip("torch")
 import sangnom_tpu_torch as T  # noqa: E402
 from sangnom_tpu_torch.core.formats import get_format  # noqa: E402
 from sangnom_tpu_torch.core.geometry import (  # noqa: E402
-    aaf_as_pixel, buffer_stride_elems, scaled_aa_thresholds)
+    aaf_as_pixel, buffer_stride_elems, scaled_aa_thresholds, width_tiers)
 from sangnom_tpu_torch.ops import deint_kernel as dk  # noqa: E402
 from sangnom_tpu_torch.ops import pool_carry as pc  # noqa: E402
 from sangnom_tpu_torch.ops import pool_kernel as pk  # noqa: E402
@@ -187,7 +188,7 @@ def test_bob_wide_matches_jax(wide_route):
     want = J.bob(J.Clip.from_numpy(planes, "YUV420P8", tff=True))
     got = T.bob(T.Clip.from_numpy(planes, "YUV420P8", device="cpu", tff=True))
     _equal(got.planes, want.planes)
-    assert wide_route == [8448]  # chroma (4224 wide) stays on K1's plan
+    assert wide_route == [4224, 8448]  # U+V (4224 wide) past one block too
 
 
 # --- (c) pool_compat --------------------------------------------------------
@@ -270,18 +271,26 @@ def test_sharded_wide_matches_jax(monkeypatch, space, smooth, across):
 # --- (e) the split itself ----------------------------------------------------
 
 SPLIT_CASES = [
-    # fmt, sse2, n, bufH, w (the last past 8 blocks: the chunk route)
-    ("GRAY8", False, 2, 5, 8193),
-    ("GRAYS", False, 2, 3, 8224),
-    ("GRAY8", True, 1, 4, 65600),
+    # fmt, sse2, n fields, bufH, w, interlaced_tff (the 65600 case past 8
+    # blocks: the chunk route)
+    ("GRAY8", False, 2, 5, 8193, None),
+    ("GRAYS", False, 2, 3, 8224, None),
+    ("GRAY8", True, 1, 4, 65600, None),
+    ("GRAY8", False, 2, 8, 3840, None),  # order=1 fields of 3840 x 16 frames
+    ("GRAY8", False, 4, 8, 2560, True),  # bob fields of 2560 x 16 frames
+    ("GRAY10", False, 2, 6, 3840, None),  # 3840 x 12, 10-bit
+    ("GRAYS", False, 2, 6, 3840, None),  # 3840 x 12, float
+    ("GRAY8", False, 2, 1, 3840, None),  # one kept row: the weave only
+    ("GRAY8", False, 2, 1, 16384, None),  # one kept row past 8 blocks: the chunk route
 ]
 
 
-@pytest.mark.parametrize("fname,sse2,n,bufH,w", SPLIT_CASES, ids=str)
-def test_wide_split_matches_jax(fname, sse2, n, bufH, w):
+@pytest.mark.parametrize("fname,sse2,n,bufH,w,tff", SPLIT_CASES, ids=str)
+def test_wide_split_matches_jax(fname, sse2, n, bufH, w, tff):
     """The wide route's plain twin (K4's plain version over the plan's k
     shards of the padded plane, cropped) equals the TPU package's field
-    interpolation, woven at offsets 0, 1 and per field."""
+    interpolation, woven at offsets 0, 1 and per field; with ``tff`` the
+    fields are split from an interlaced plane first, as the bob's are."""
     J = _jax()
     from sangnom_tpu.ops import reference as jref
     from sangnom_tpu.ops.primitives import KernelSpec as JSpec
@@ -291,21 +300,28 @@ def test_wide_split_matches_jax(fname, sse2, n, bufH, w):
     spec = _spec(fname, sse2)
     stride = buffer_stride_elems(w, fmt.component_size)
     aaf = aaf_as_pixel(scaled_aa_thresholds(48, 48, fmt)[0], fmt)
-    kept = _plane(np.random.default_rng(w), (n, bufH, w), fmt)
+    rng = np.random.default_rng(w + bufH)
+    if tff is None:
+        src = kept = _plane(rng, (n, bufH, w), fmt)
+    else:  # [n/2, 2*bufH, w] frames; field 2j+b of frame j, b = 0 the first
+        src = _plane(rng, (n // 2, 2 * bufH, w), fmt)
+        rows = src.reshape(n // 2, bufH, 2, w)
+        kept = (rows if tff else rows[:, :, ::-1]).transpose(0, 2, 1, 3).reshape(n, bufH, w)
     plan = dk.wide_plan(w, bufH, stride, spec, dk.H100_SMEM)
     assert plan.k > 1 and plan.plan.cluster == (plan.k <= sk.MAX_CLUSTER)
     import jax.numpy as jnp
 
     jspec = JSpec.from_format(J.get_format(fname), sse2=sse2)
     jinterp = jref.interpolate_field_batch(jnp.asarray(kept), aaf, jspec, stride)
-    got = dk._wide(torch.from_numpy(kept), None, aaf, spec, stride)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(jinterp))
+    if bufH >= 2:
+        got = dk._wide(torch.from_numpy(src), None, aaf, spec, stride, tff)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jinterp))
     pf = np.arange(n, dtype=np.int32) % 2
     for off in (0, 1, pf):
         t_off = torch.from_numpy(off) if isinstance(off, np.ndarray) else off
         j_off = jnp.asarray(off) if isinstance(off, np.ndarray) else off
         want = j_weave(jnp.asarray(kept), jinterp, j_off)
-        got = dk._wide(torch.from_numpy(kept), t_off, aaf, spec, stride)
+        got = dk._wide(torch.from_numpy(src), t_off, aaf, spec, stride, tff)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=str(off))
 
 
@@ -333,34 +349,80 @@ def test_split_walk_matches_jax(fname, S, P):
     np.testing.assert_array_equal(got[:, [0, P]].numpy(), pool[:, [0, P]])
 
 
+@pytest.mark.parametrize("w,fields", [(3840, 24), (1920, 0)], ids=str)
+def test_cluster_fields_counted(wide_route, w, fields):
+    """``cluster_fields`` counts the fields that the card walks as a
+    cluster split (``test_wide_launch_span_on_card``: 24 for a 24-frame
+    3840-wide luma pass, none at 1920).  On the CPU the same call takes
+    the plan the card would, a cluster of 4 blocks for each of the 24
+    luma fields at 3840 and one block a field at 1920, runs K4's plain
+    version there and counts nothing."""
+    from sangnom_tpu_torch.utils import profiling as pr
+
+    planes = _planes("GRAY8", w, 4, 24, 37)
+    clip = T.Clip.from_numpy(planes, "GRAY8", device="cpu")
+    fp = dk.wide_plan(w, 4, buffer_stride_elems(w, 1), _spec("GRAY8"), dk.H100_SMEM)
+    if fields:
+        assert (fp.k, fp.plan.cluster) == (4, True)
+    else:
+        assert fp.k == 1
+    before = pr.counters().get("cluster_fields", 0)
+    with pr.tracing():
+        got = T.sangnom2(clip, order=1)
+    pr.drain()
+    assert pr.counters().get("cluster_fields", 0) == before
+    assert wide_route == ([w] if fields else [])
+    _equal(got.planes, T.sangnom2(clip, order=1, opt=0).planes)
+
+
 # --- (f) the plans ----------------------------------------------------------
 
 WIDTHS = (8192, 8193, 8224, 12288, 15360, 16384, 32768, 65280, 65536)
 
 
-@pytest.mark.parametrize("S", WIDTHS)
+@pytest.mark.parametrize("S", (1920, 2048, 2049, 2056, 3840, 4096, 7680) + WIDTHS)
 def test_wide_plan(S):
-    """GRAY8 fields of width S (S smoothed columns): up to 8192 K1's plan;
-    above, k blocks of at most 8184 columns, halos included, each halo
-    within the adjacent block, the cluster route up to 8 blocks."""
+    """GRAY8 fields of width S: up to 2048 smoothed columns K1's plan;
+    above, K4's 4-column build over k >= 2 blocks, a halo exchange every
+    ``WIDE_ROWS`` rows: the least k up to 8 whose blocks, halos included,
+    fit ``WIDE_BLOCK`` columns, else the least k whose blocks fit 2040;
+    each halo within the adjacent block, the cluster route up to 8 blocks."""
     spec = _spec("GRAY8")
     stride = buffer_stride_elems(S, 1)
-    for bufH in (4, 540):
+    for bufH in (1, 4, 540):
         fp = dk.wide_plan(S, bufH, stride, spec, dk.H100_SMEM)
-        if S <= dk.MAX_COLS:
-            assert (fp.k, fp.W_loc) == (1, S)
-            assert fp.plan == dk.launch_plan(S, S, 1, dk.H100_SMEM)
+        smoothed = width_tiers(S, bufH, stride, spec)[2]
+        if smoothed <= dk.FIELD_COLS:
+            assert (fp.k, fp.W_loc) == (1, smoothed)
+            assert fp.plan == dk.launch_plan(S, smoothed, 1, dk.H100_SMEM)
+            assert fp.plan.cols == 4
             continue
         assert fp.k > 1 and fp.width >= S and fp.width % fp.k == 0
         plan = fp.plan
-        assert plan.H <= fp.W_loc
-        assert sk.block_width(fp.k, fp.W_loc, plan.H) <= sk.MAX_BLOCK
+        assert plan.R == max(1, min(dk.WIDE_ROWS, bufH - 1))
+        assert plan.H == 3 * plan.R <= fp.W_loc
+        assert plan.cols == 4 and plan.threads <= 512
         assert plan.cluster == (fp.k <= sk.MAX_CLUSTER)
-        assert plan.launches == (1 if plan.cluster else -(-(bufH - 1) // plan.R))
-        # the least such k
-        assert not any(fp.width % j == 0 and
-                       sk.block_width(j, fp.width // j, 3 * sk.CLUSTER_ROWS) <= sk.MAX_BLOCK
-                       for j in range(2, fp.k))
+        if bufH == 1:  # the weave alone: one launch over no steps, either route
+            assert plan.launches == 1
+        else:
+            assert plan.launches == (1 if plan.cluster else -(-(bufH - 1) // plan.R))
+
+        def fits(j, cap):
+            W = fp.width // j
+            return fp.width % j == 0 and sk.block_width(j, W, plan.H) <= cap
+
+        narrow = [j for j in range(2, sk.MAX_CLUSTER + 1) if fits(j, dk.WIDE_BLOCK)]
+        if narrow:
+            assert fp.k == narrow[0]
+        else:  # the least k within the 4-column build
+            assert fits(fp.k, sk.MAX_BLOCK_4)
+            assert not any(fits(j, sk.MAX_BLOCK_4) for j in range(2, fp.k))
+        if S == 3840:  # the maa pass's luma: four blocks of 960, no pad, no crop
+            assert (fp.k, fp.W_loc, fp.width, plan.cluster) == (4, 960, 3840, True)
+            assert plan.threads == 256
+        if S == 15360:
+            assert (fp.k, fp.W_loc) == (8, 1920)
 
 
 @pytest.mark.parametrize("S", WIDTHS + (65600,))
@@ -418,7 +480,13 @@ KERNEL_CASES = [
     ("GRAY16", False, 2, 9, 10240, 1, None),
     ("YUV422P10", True, 2, 6, 16416, "pf", None),
     ("GRAYS", False, 2, 7, 8448, "pf", False),
-    ("GRAY8", False, 1, 9, 65600, 0, None),  # 10 blocks: the chunk route
+    ("GRAY8", False, 1, 9, 65600, 0, None),  # 40 blocks: the chunk route
+    ("GRAY8", False, 3, 9, 3840, 1, None),  # UHD luma: 4 blocks of 960
+    ("GRAY8", False, 2, 8, 2560, "pf", True),  # a UHD-ish bob, fields in place
+    ("GRAY10", False, 2, 6, 3840, 0, None),
+    ("GRAYS", True, 2, 6, 4096, 1, None),  # 8 blocks of 512
+    ("GRAY8", False, 2, 1, 3840, 0, None),  # one kept row: the weave only
+    ("GRAY8", False, 2, 1, 16384, 1, None),  # one kept row on the chunk route (16 blocks)
 ]
 
 
@@ -478,14 +546,81 @@ def test_wide_walk_on_card(cuda, fname, sse2, S, P):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fname,w,h,kw", API_CASES, ids=str)
+@pytest.mark.parametrize("bufH", [1, 9])
+def test_wide_chunk_route_on_card(cuda, monkeypatch, bufH):
+    """The wide route where the card cannot schedule the cluster: 3840
+    columns on the chunk route (4 blocks, a launch a chunk of R rows; one
+    launch for one kept row) against the plain path, woven at offsets 0, 1
+    and per field, and not woven."""
+    spec = _spec("GRAY8")
+    fmt = get_format("GRAY8")
+    aaf = aaf_as_pixel(scaled_aa_thresholds(48, 48, fmt)[0], fmt)
+    limit = dk._max_smem_bytes(dk._load(), cuda)
+    monkeypatch.setattr(dk, "_card_plan", lambda w, bufH, stride, spec, device: dk.wide_plan(
+        w, bufH, stride, spec, limit, cluster=False))
+    fp = dk._card_plan(3840, bufH, 3840, spec, cuda)
+    assert (fp.k, fp.plan.cluster) == (4, False)
+    kept = torch.from_numpy(_plane(np.random.default_rng(bufH), (3, bufH, 3840), fmt)).to(cuda)
+    for off in (0, 1, torch.tensor([0, 1, 1], dtype=torch.int32, device=cuda)):
+        full = sk.LAUNCHES["full"]
+        got = dk.deinterlace_field_batch_fused(kept, off, aaf, spec, 3840)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES["full"] - full == fp.plan.launches
+        assert torch.equal(got, dk.deinterlace_field_batch_plain(kept, off, aaf, spec, 3840))
+    if bufH > 1:
+        got = dk.interpolate_field_batch(kept, aaf, spec, 3840)
+        assert torch.equal(got, ref.interpolate_field_batch(kept, aaf, spec, 3840))
+
+
+UHD_CASES = [
+    # the maa pass and the bob at 3840 x 2160: the luma fields on K4 over 4
+    # blocks, the 1920-wide chroma on K1
+    ("YUV420P8", 3840, 2160, dict(order=1, aa=48, aac=0)),
+    ("YUV420P8", 3840, 2160, dict(bob=True)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fname,w,h,kw", API_CASES + UHD_CASES, ids=str)
 def test_sangnom2_wide_on_card(cuda, fname, w, h, kw):
-    """The filter surface on the card past one block equals opt=0."""
+    """The filter surface on the card past one block equals opt=0; past
+    the pool walk's one block (8192 columns) pool_compat too."""
+    kw = dict(kw)
+    bob = kw.pop("bob", False)
     planes = _planes(fname, w, h, 2, w + h)
+    if bob:
+        clip = T.Clip.from_numpy(planes, fname, device=cuda, tff=True)
+        _equal(T.bob(clip, **kw).planes, T.bob(clip, opt=0, **kw).planes, "bob")
+        return
     clip = T.Clip.from_numpy(planes, fname, device=cuda, parity=np.array([True, False]))
     _equal(T.sangnom2(clip, **kw).planes, T.sangnom2(clip, opt=0, **kw).planes)
-    _equal(T.sangnom2(clip, pool_compat=True, **kw).planes,
-           T.sangnom2(clip, pool_compat=True, opt=0, **kw).planes, "pool_compat")
+    if w > dk.MAX_COLS:
+        _equal(T.sangnom2(clip, pool_compat=True, **kw).planes,
+               T.sangnom2(clip, pool_compat=True, opt=0, **kw).planes, "pool_compat")
+
+
+@pytest.mark.cuda
+def test_wide_launch_span_on_card(cuda):
+    """A wide field pass's K4 launch span carries its route and k, and
+    ``cluster_fields`` counts its fields: 24 luma fields of 3840 on a
+    cluster of 4 blocks; none at 1920."""
+    from sangnom_tpu_torch.utils import profiling as pr
+
+    spec = _spec("GRAY8")
+    aaf = aaf_as_pixel(scaled_aa_thresholds(48, 0, get_format("GRAY8"))[0],
+                       get_format("GRAY8"))
+    for w, fields, ks in ((3840, 24, [4]), (1920, 0, [])):
+        kept = torch.randint(0, 256, (24, 16, w), dtype=torch.uint8, device=cuda)
+        before = pr.counters().get("cluster_fields", 0)
+        with pr.tracing():
+            got = dk.deinterlace_field_batch_fused(kept, 1, aaf, spec, w)
+        torch.cuda.synchronize()
+        recs = [r for r in pr.drain() if r.name == pr.LAUNCH]
+        k4 = [r.counts for r in recs if r.counts.get("kernel") == "shard_full_kernel"]
+        assert [c["k"] for c in k4] == ks
+        assert all(c["route"] == "cluster" for c in k4)
+        assert pr.counters().get("cluster_fields", 0) - before == fields
+        assert torch.equal(got, dk.deinterlace_field_batch_plain(kept, 1, aaf, spec, w))
 
 
 @pytest.mark.cuda
