@@ -147,12 +147,13 @@ def run(cell: harness.Cell, call=None) -> harness.Outcome:
 
 
 def mismatches(got, want) -> int:
-    """Samples that differ over all planes; a plane of the wrong shape
-    counts all its samples."""
+    """Samples that differ over all planes; a plane of the wrong shape or
+    dtype counts all its samples.  Compared in int32: the card has no
+    uint16 comparison."""
     bad = abs(len(got) - len(want))
     for a, b in zip(got, want):
-        if a.shape != b.shape:
+        if a.shape != b.shape or a.dtype != b.dtype:
             bad += b.numel()
         else:
-            bad += int((a.to(b.device) != b).sum())
+            bad += int((a.to(b.device, torch.int32) != b.to(torch.int32)).sum())
     return bad

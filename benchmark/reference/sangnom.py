@@ -12,8 +12,11 @@ Per plane pass (reference src/SangNom2.cpp:74-273):
      reads the already-smoothed row above: a scan over rows;
   3. finalize: 9-way min and the fixed-priority select (the C if-chain's
      order breaks ties).
-Planes are [N, h, w] tensors of unsigned samples; work is in int32, which
-holds every intermediate of the C path exactly.
+Planes are [N, h, w] int32 tensors of unsigned samples (`reference.run`
+converts the storage dtype in and out); int32 holds every intermediate of
+the C path exactly.  The C path wraps to its pixel type, uint8_t at 8 bits
+and uint16_t at 9-16 bits whatever the depth (src/SangNom2.cpp:316-327), so
+the wrap mask is the storage width's (`storage_mask`), never the depth's.
 """
 
 from __future__ import annotations
@@ -42,6 +45,12 @@ def thresholds(aa: int, aac: int, bits: int) -> list[int]:
         v = v * np.float32(1 << (bits - 8))
         out.append(int(v))
     return out
+
+
+def storage_mask(bits: int) -> int:
+    """The pixel type's mask: 0xFF for 8-bit samples, 0xFFFF for 9-16 bits
+    (stored as uint16)."""
+    return 0xFF if bits == 8 else 0xFFFF
 
 
 def decay_rows(mask: int) -> int:
@@ -138,13 +147,13 @@ def interpolate(kept: torch.Tensor, aaf: int, mask: int, stride: int) -> torch.T
     S = min(stride, w + 3 * decay_rows(mask) + 6)
     out = []
     for s in range(0, N, BLOCK):
-        k = kept[s:s + BLOCK].to(torch.int32)
+        k = kept[s:s + BLOCK]
         c, n, preds = _pair(k[:, :-1], k[:, 1:], mask)
         raw = k.new_zeros((bufH + 1, MAPS, k.shape[0], S))
         raw[1:bufH, :, :, :w] = torch.stack(_maps(c, n, preds)).permute(2, 0, 1, 3)
         bufs = smooth(raw, mask)[..., :w].permute(1, 2, 0, 3)
         del raw
-        out.append(_finalize(c, n, preds, bufs, aaf, mask).to(kept.dtype))
+        out.append(_finalize(c, n, preds, bufs, aaf, mask))
     return torch.cat(out)
 
 
@@ -169,7 +178,7 @@ def sangnom2(planes, bits: int, offsets: list[int], aa: int, aac: int) -> list[t
     field at ``offsets[n]`` (0 top, 1 bottom: order=1 keeps 0, order=2 1,
     order=0 the frame's parity, src/SangNom2.cpp:336-341).  ``planes``:
     [N, h, w] tensors, luma first."""
-    mask = (1 << bits) - 1
+    mask = storage_mask(bits)
     stride = stride_of(planes[0].shape[2])
     aafs = thresholds(aa, aac, bits)
     out = []
@@ -225,19 +234,18 @@ def pool_pass(kept: torch.Tensor, pool: torch.Tensor, aaf: int, mask: int) -> to
     (src/SangNom2.cpp:268-272).  Returns [bufH-1, w] interpolated rows."""
     bufH, w = kept.shape
     P = pool.shape[1] - 1
-    k = kept.to(torch.int32)
-    c, n, preds = _pair(k[:-1], k[1:], mask)
+    c, n, preds = _pair(kept[:-1], kept[1:], mask)
     pool[:, 1:bufH, :w] = torch.stack(_maps(c, n, preds))
     rows = pool.transpose(0, 1)  # [P+1, 9, S]
     pool[:, 1:P] = smooth(rows, mask, init=rows[0].clone()).transpose(0, 1)
-    return _finalize(c, n, preds, pool[:, 1:bufH, :w], aaf, mask).to(kept.dtype)
+    return _finalize(c, n, preds, pool[:, 1:bufH, :w], aaf, mask)
 
 
 def sangnom2_pool(planes, bits: int, offsets: list[int], aa: int, aac: int) -> list[torch.Tensor]:
     """SangNom2 through one fresh shared pool, sized by luma (P = h/2 kept
     rows, stride ceil32(w)): frames in order, planes Y -> U -> V
     (src/SangNom2.cpp:287-288, 303-310)."""
-    mask = (1 << bits) - 1
+    mask = storage_mask(bits)
     N, h, w = planes[0].shape
     pool = torch.zeros((MAPS, h // 2 + 1, stride_of(w)), dtype=torch.int32,
                        device=planes[0].device)

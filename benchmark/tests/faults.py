@@ -30,7 +30,8 @@ def broken(fn, entry: str, fault: str):
             h = out.num_frames // 2
             return out.with_planes([torch.cat([a[:h], b[h:]]) for a, b in zip(out.planes, raw.planes)])
         planes = [p.clone() for p in out.planes]
-        planes[0][-1, -1, -1] ^= 1
+        last = planes[0][-1, -1, -1]
+        last.copy_(last.to(torch.int32) ^ 1)  # in int32: the card has no uint16 xor
         return out.with_planes(planes)
 
     return call

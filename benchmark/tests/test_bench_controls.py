@@ -1,6 +1,7 @@
-"""The control (the program's SSE2 numerics in the timed path's place)
-comes out not correct in every cell: on the CPU at tiny size, and on the
-card at a size a test run holds.  At the cells' own sizes it is run as
+"""The control (`controls.py`: the program's SSE2 numerics at 8 bits, the
+top 8 bits of deeper samples; `test_bench_depth.py` runs the latter) comes
+out not correct in every cell: on the CPU at tiny size, and on the card at
+a size a test run holds.  At the cells' own sizes it is run as
 ``python3 -m benchmark.tests.controls``."""
 
 from __future__ import annotations

@@ -12,8 +12,9 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
-from benchmark import harness, peaks, trace
+from benchmark import harness, inputs, peaks, trace
 from benchmark.work import main as work_main
 from benchmark.work import pool as work_pool
 
@@ -83,6 +84,63 @@ def test_work_matches_the_measuring_code_it_copies():
     assert (peaks.PEAK_BYTES_S, peaks.PEAK_INT32_S) == (cost_model.PEAK_BYTES_S, cost_model.PEAK_INT32_S)
     assert (peaks.OPS_PREPARE, peaks.OPS_SMOOTH, peaks.OPS_FINALIZE) == (
         cost_model.OPS_PREPARE, cost_model.OPS_SMOOTH, cost_model.OPS_FINALIZE)
+
+
+@pytest.mark.parametrize("cell,work", [
+    ("bob1080i.api", (559872000, 30501482400)),
+    ("maa2160p.api", (447897600, 24368594400)),
+    ("bob1080i.compat", (2739302400, 6282670080)),
+])
+def test_work_of_the_8_bit_cells(cell, work):
+    """Bytes and operations a call, as counted since the cells were made."""
+    _, config, traffic = harness.find_cell(SPEC, cell, ROOT)
+    assert harness.work(traffic["work"]).call_work(config, traffic) == work
+
+
+def test_work_counts_samples_at_their_stored_size():
+    """A 10-bit 4:2:2 bob: 2 bytes a sample, chroma as tall as luma, and the
+    smoothing's decay bound from the uint16 pixel type (14 rows, not 9)."""
+    config, traffic = harness.cell_files("bob1080i.api")
+    deep = dict(config, format="YUV422P10", bits=10, plane_shifts=[[0, 0], [1, 0], [1, 0]])
+    assert work_main.smoothed_columns(960, 540, 1920, 0xFFFF) == 960 + 3 * 14 + 6
+    assert work_main.smoothed_columns(960, 540, 1920, 0xFF) == 960 + 3 * 7 + 6
+    assert work_main.call_work(deep, traffic) == (1492992000, 41043340800)
+    nbytes_8, _ = work_pool.call_work(dict(config, bits=8), dict(traffic, frames=8))
+    nbytes_10, _ = work_pool.call_work(dict(config, bits=10), dict(traffic, frames=8))
+    # the pool's own bytes stay int32; each pass's kept rows in and rows out double
+    assert nbytes_10 - nbytes_8 == 16 * (1079 * 1920 + 2 * 539 * 960)
+
+
+@pytest.mark.parametrize("seed,w,h,n,digest", [
+    (2**31 + 17, 64, 32, 3, "53ca87ae641af8415dd1a3d2e8b9b62d11c3924132d035b2290023d12a7eee04"),
+    (2**40 + 3, 60, 24, 2, "7cb574fcc1a909a8e4a95755014bf240d4c6f23d07500cc67eb02198fec050ee"),
+])
+def test_8_bit_draws_are_unchanged(seed, w, h, n, digest):
+    """Two clips of 8-bit frames from one seed, as the drivers draw them,
+    hash as they did before deeper samples were drawn."""
+    import hashlib
+
+    config, _ = harness.cell_files("bob1080i.api")
+    config = dict(config, width=w, height=h)
+    gen = inputs.generator(seed, "cpu")
+    sha = hashlib.sha256()
+    for _ in range(2):
+        for p in inputs.frames(config, n, gen, "cpu"):
+            assert p.dtype == torch.uint8
+            sha.update(p.numpy().tobytes())
+    assert sha.hexdigest() == digest
+
+
+def test_deeper_draws_are_uint16_over_the_depth():
+    config, _ = harness.cell_files("bob1080i.api")
+    for bits in (10, 12, 16):
+        deep = dict(config, width=64, height=32, bits=bits)
+        planes = inputs.frames(deep, 4, inputs.generator(3, "cpu"), "cpu")
+        assert all(p.dtype == torch.uint16 for p in planes)
+        top = max(int(p.to(torch.int32).max()) for p in planes)
+        assert (1 << bits) - 64 <= top < 1 << bits
+    with pytest.raises(ValueError):
+        inputs.frames(dict(config, bits=32), 1, inputs.generator(3, "cpu"), "cpu")
 
 
 def test_bob_work_bound():

@@ -6,12 +6,16 @@ the workload file names its mode under "work"."""
 from __future__ import annotations
 
 
-
 def planes_of(config: dict) -> list[tuple[int, int]]:
     """(width, height) of each plane of the configuration's frames (its
     ``plane_shifts``: each plane's width and height shifts from luma)."""
     return [(config["width"] >> sw, config["height"] >> sh)
             for sw, sh in config["plane_shifts"]]
+
+
+def sample_bytes(config: dict) -> int:
+    """Bytes a stored sample takes: 1 at 8 bits, 2 at 9-16 (uint16)."""
+    return 1 if config["bits"] == 8 else 2
 
 
 def stride_of(luma_width: int) -> int:

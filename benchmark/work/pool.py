@@ -5,7 +5,7 @@ prepares its kept pairs into the one pool [9, P+1, S], smooths all of rows
 from __future__ import annotations
 
 from benchmark.peaks import OPS_FINALIZE, OPS_PREPARE, OPS_SMOOTH
-from benchmark.work import field_passes, planes_of, stride_of
+from benchmark.work import field_passes, planes_of, sample_bytes, stride_of
 
 
 def pool_fused_work(P: int, S: int, bufH_p: int, w: int, elem: int = 1):
@@ -22,11 +22,13 @@ def pool_fused_work(P: int, S: int, bufH_p: int, w: int, elem: int = 1):
 
 
 def call_work(config: dict, traffic: dict) -> tuple[int, int]:
-    """(bytes, ops) of one call: a pass a plane a frame."""
+    """(bytes, ops) of one call: a pass a plane a frame, samples at their
+    stored size."""
     w0, h0 = planes_of(config)[0]
     P, S = h0 // 2, stride_of(w0)
+    elem = sample_bytes(config)
     nbytes = ops = 0
     for n, bufH_p, w in field_passes(config, traffic):
-        b, o = pool_fused_work(P, S, bufH_p, w)
+        b, o = pool_fused_work(P, S, bufH_p, w, elem)
         nbytes, ops = nbytes + n * b, ops + n * o
     return nbytes, ops
