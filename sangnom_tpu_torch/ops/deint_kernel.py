@@ -515,7 +515,9 @@ def _launch(src: torch.Tensor, out: torch.Tensor, spec: KernelSpec, aaf,
         if sp:
             sp.set(kernel="deint_kernel", blocks=n_fields, threads=plan.threads,
                    smem_bytes=plan.smem_bytes,
-                   bytes=(src.numel() + out.numel()) * src.element_size())
+                   bytes=(src.numel() + out.numel()) * src.element_size(),
+                   elem=src.element_size(), rows=bufH, cols=w, smoothed=S,
+                   cols_per_thread=plan.cols)
 
 
 def deinterlace_field_batch_plain(

@@ -140,19 +140,37 @@ def weave_assemble(
     return weave(top, bottom)
 
 
-def field_offsets(order: int, parity, device: torch.device) -> Offset:
+# Device copies of order=0 offsets, by (device, repeats, pattern): every bob
+# call of a clip length reads the same alternating pattern, so it crosses to
+# the card once.  Filled up to _OFFSETS_MAX patterns and never emptied, so no
+# copy is freed while a launch on any stream may still read it.
+_OFFSETS: dict = {}
+_OFFSETS_MAX = 64
+
+
+def field_offsets(order: int, parity, device: torch.device,
+                  repeats: int = 1) -> Offset:
     """Per-frame kept-field offset (reference src/SangNom2.cpp:336-341):
     order=0 consults the per-frame host parity (GetParity), 1 keeps the
-    top field, 2 the bottom one."""
+    top field, 2 the bottom one.  ``repeats``: the order=0 offsets that
+    many times over (U and V in one launch)."""
     if order == 1:
         return 0
     if order == 2:
         return 1
     offs = np.where(np.asarray(parity, dtype=bool), 0, 1).astype(np.int32)
-    if device.type != "cpu":
+    if device.type == "cpu":
+        return torch.from_numpy(np.tile(offs, repeats))
+    key = (device, repeats, offs.tobytes())
+    t = _OFFSETS.get(key)
+    if t is None:
+        offs = np.tile(offs, repeats)
         count("h2d_copies")
         count("h2d_bytes", offs.nbytes)
-    return torch.from_numpy(offs).to(device)
+        t = torch.from_numpy(offs).to(device)  # synchronous: complete for every stream
+        if len(_OFFSETS) < _OFFSETS_MAX:
+            _OFFSETS[key] = t
+    return t
 
 
 def field_offset_py(order: int, frame_parity: bool) -> int:
@@ -216,10 +234,8 @@ def sangnom2_impl(
         with span(PLANE) as sp:
             uv = torch.cat([planes[1], planes[2]], dim=0)
             if sp:
-                sp.set(plane="uv",
-                       fields=uv.shape[0] * (1 if interlaced_tff is None else 2),
-                       bytes=uv.numel() * uv.element_size())
-            offs2 = offsets if isinstance(offsets, int) else offsets.repeat(2)
+                _plane_counts(sp, "uv", uv, interlaced_tff)
+            offs2 = field_offsets(order, parity, device, repeats=2)
             # output frames per plane, doubled for interlaced (bob) input
             n = planes[1].shape[0] * (1 if interlaced_tff is None else 2)
             res = deinterlace_plane_batch(
@@ -246,14 +262,23 @@ def sangnom2_impl(
             continue
         with span(PLANE) as sp:
             if sp:
-                sp.set(plane=i, fields=p.shape[0] * (1 if interlaced_tff is None else 2),
-                       bytes=p.numel() * p.element_size())
+                _plane_counts(sp, i, p, interlaced_tff)
             out[i] = deinterlace_plane_batch(
                 p, offsets, dh=dh, aaf=aaf_as_pixel(aafs[i], fmt), spec=spec,
                 stride=stride, interp_fn=interp_fn, plane_width=width_of(i),
                 interlaced_tff=interlaced_tff,
             )
     return tuple(out[i] for i in range(len(planes)))
+
+
+def _plane_counts(sp, plane, src: torch.Tensor, interlaced_tff) -> None:
+    """A plane span's counts, and the ``u16_fields`` counter: the fields
+    the pass walks with 2-byte samples (the uint16 build of the kernel)."""
+    fields = src.shape[0] * (1 if interlaced_tff is None else 2)
+    elem = src.element_size()
+    sp.set(plane=plane, fields=fields, bytes=src.numel() * elem, elem=elem)
+    if elem == 2:
+        count("u16_fields", fields)
 
 
 def sangnom2_op(

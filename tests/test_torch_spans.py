@@ -230,6 +230,42 @@ def test_bob_and_pool_compat_calls_record_their_layers():
     assert [r.counts["frame"] for r in passes[:3]] == [0, 0, 0]
 
 
+def test_order0_offsets_cross_to_the_device_once_a_pattern():
+    from sangnom_tpu_torch.ops.sangnom import field_offsets
+
+    parity = np.tile(np.array([False, True]), 13)  # a length no other case uses
+    want = np.where(parity, 0, 1).astype(np.int32)
+    meta = torch.device("meta")
+    with pr.tracing():
+        before = pr.counters().get("h2d_copies", 0)
+        one = [field_offsets(0, parity, meta) for _ in range(3)]
+        two = [field_offsets(0, parity, meta, repeats=2) for _ in range(3)]
+        grown = pr.counters().get("h2d_copies", 0) - before
+    assert all(t is one[0] for t in one) and all(t is two[0] for t in two)
+    assert one[0].shape == (26,) and two[0].shape == (52,) and grown == 2
+    cpu = torch.device("cpu")
+    assert field_offsets(0, parity, cpu).tolist() == want.tolist()
+    assert field_offsets(0, parity, cpu, repeats=2).tolist() == np.tile(want, 2).tolist()
+    assert field_offsets(1, parity, meta) == 0 and field_offsets(2, parity, meta, repeats=2) == 1
+
+
+@pytest.mark.cuda
+def test_bob_uploads_its_offsets_once_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    clip = _clip(n=13, device="cuda")  # a length no other case uses
+    with pr.tracing():
+        counts = []
+        for _ in range(3):
+            before = pr.counters().get("h2d_copies", 0)
+            out = bob(clip)
+            counts.append(pr.counters().get("h2d_copies", 0) - before)
+    assert counts == [2, 0, 0]  # luma's offsets and U+V's, on the first call only
+    cpu = bob(Clip([p.cpu() for p in clip.planes], clip.format, tff=clip.tff))
+    for a, b in zip(out.planes, cpu.planes):
+        assert torch.equal(a.cpu(), b)
+
+
 def test_other_entries_record_a_call():
     from sangnom_tpu_torch import sangnom
     from sangnom_tpu_torch.ops.sangnom import sangnom2_pool_stream
