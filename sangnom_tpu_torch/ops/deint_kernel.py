@@ -39,6 +39,7 @@ and ``LIB_PATH`` names the library file that was loaded.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -417,6 +418,103 @@ def _card_plan(w: int, bufH: int, stride: int, spec: KernelSpec,
         _CLUSTER_OK[key] = sk.occupancy("full", spec, fp.plan, fp.k, device)["clusters"] > 0
     return fp if _CLUSTER_OK[key] else wide_plan(w, bufH, stride, spec, limit,
                                                  cluster=False)
+
+
+class Card(NamedTuple):
+    """What `overlap_uv` needs of a card: its SMs, the plans' shared memory
+    limit a block, and the shared memory of one SM."""
+
+    sms: int
+    smem_block: int
+    smem_sm: int
+
+
+# Shared memory the CUDA runtime reserves on a SM for each resident block.
+SMEM_RESERVED = 1024
+# A call's U+V pass runs beside its luma pass where the SMs the luma pass
+# leaves free hold at least this share of the U+V blocks.  Each block walks
+# its fields' rows serially, so a pass takes as long on few SMs as on many:
+# only independent work fills the idle ones.
+OVERLAP_SHARE = 0.5
+_CARDS: dict[int, Card] = {}
+
+
+class PassShape(NamedTuple):
+    """A plane pass's grid: blocks (fields x k) and shared memory a
+    block."""
+
+    blocks: int
+    smem_bytes: int
+
+
+def blocks_per_sm(p: PassShape, card: Card) -> int:
+    """Blocks of ``p`` one SM holds by shared memory, which bounds every
+    plan of K1 and K4 before threads or registers do."""
+    return card.smem_sm // (p.smem_bytes + SMEM_RESERVED)
+
+
+def overlap_rule(lead: PassShape, other: PassShape, card: Card) -> bool:
+    """Whether ``other`` runs beside ``lead``: where no SM can take two of
+    the leader's blocks, the SMs it leaves free are the card's less its
+    blocks, and ``other`` goes beside it where those SMs hold at least
+    ``OVERLAP_SHARE`` of its blocks."""
+    if blocks_per_sm(lead, card) > 1:
+        return False
+    free = max(card.sms - lead.blocks, 0)
+    return free * blocks_per_sm(other, card) >= OVERLAP_SHARE * other.blocks
+
+
+@functools.lru_cache(maxsize=64)
+def _overlap_plans(geoms: tuple, stride: int, spec: KernelSpec, card: Card) -> bool:
+    from sangnom_tpu_torch.parallel import shard_kernel as sk
+
+    passes = []
+    for fields, w, bufH in geoms:
+        fp = wide_plan(w, bufH, stride, spec, card.smem_block)
+        blocks, smem = fields * fp.k, fp.plan.smem_bytes
+        if fp.k > 1:  # K4 launches as `shard_kernel.full_pass` pads it
+            smem = sk.one_wave_smem(blocks, smem, card)
+        passes.append(PassShape(blocks, smem))
+    return overlap_rule(*passes, card)
+
+
+def card_figures(device: torch.device) -> Card:
+    """The card's `Card`, queried once a device."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    card = _CARDS.get(idx)
+    if card is None:
+        props = torch.cuda.get_device_properties(idx)
+        card = _CARDS[idx] = Card(props.multi_processor_count, _max_smem_bytes(_load(), device),
+                                  props.shared_memory_per_multiprocessor)
+    return card
+
+
+def overlap_uv(shapes, devices, *, dh: bool, interlaced: bool, stride: int,
+               spec: KernelSpec, kernel: bool, plane_widths=None,
+               card: Card | None = None) -> bool:
+    """Whether a call's batched U+V pass runs on a second stream beside
+    its luma pass, which leads on the caller's stream (`overlap_rule` on
+    their `wide_plan`s).  The luma pass leads: no chroma plane has more
+    rows than the luma plane, so no U+V walk is the longer.
+
+    ``shapes``: the luma plane's [N, H, W] and the U plane's, None for a
+    pass that does not run; ``devices``: every plane's device; ``kernel``:
+    the passes run this module's kernels.  False for a single pass, off the
+    kernels, for the width-sharded path (``plane_widths`` given), off the
+    card, for planes on more than one device, and where a pass launches
+    nothing.  ``card``: the card's figures (default: queried)."""
+    if (None in shapes or not kernel or plane_widths is not None
+            or devices[0].type != "cuda" or len(set(devices)) > 1):
+        return False
+    geoms = []
+    for i, (n, h, w) in enumerate(shapes):
+        fields = n * (2 if interlaced else 1) * (2 if i else 1)
+        h_src = h // 2 if interlaced else h
+        bufH = (2 * h_src if dh else h_src) // 2
+        if not fields or not w or bufH < 2:
+            return False
+        geoms.append((fields, w, bufH))
+    return _overlap_plans(tuple(geoms), stride, spec, card or card_figures(devices[0]))
 
 
 def _wide(kept: torch.Tensor, offset, aaf, spec: KernelSpec, stride: int,

@@ -15,6 +15,7 @@ selection, src/SangNom2.cpp:312-329):
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Union
 
 import numpy as np
@@ -60,6 +61,7 @@ def deinterlace_plane_batch(
     interp_fn: Callable,
     plane_width: int | None = None,
     interlaced_tff: bool | None = None,
+    on_kept: Callable | None = None,
 ) -> torch.Tensor:
     """One plane, all frames: [N, h_src, w] -> [N, h_out, w].
 
@@ -75,6 +77,9 @@ def deinterlace_plane_batch(
     ``interlaced_tff`` not None (requires dh): ``src`` is an interlaced
     [N/2, h, w] plane whose fields are the dh sources (the bob pipeline);
     the CUDA kernel reads the fields in place, other paths split here.
+
+    ``on_kept``: called once the kept rows are issued, before anything
+    else of the pass.
     """
     if interlaced_tff is not None:
         if not dh:
@@ -92,6 +97,8 @@ def deinterlace_plane_batch(
         kept = where_storage(
             (offsets == 0)[:, None, None], src[:, 0::2], src[:, 1::2]
         )
+    if on_kept is not None:
+        on_kept()
 
     # The CUDA backend emits the complete woven plane (kept rows,
     # interpolated rows and the boundary duplicate) from the kernel.
@@ -229,12 +236,18 @@ def sangnom2_impl(
         i for i in (1, 2)
         if i < len(planes) and (dh or process[i])
     ]
-    if len(chroma_planes) == 2 and planes[1].shape == planes[2].shape:
+    uv_batched = len(chroma_planes) == 2 and planes[1].shape == planes[2].shape
+
+    def uv_pass(side: bool = False) -> torch.Tensor:
         # U and V share geometry, threshold and offsets: one batched launch
         with span(PLANE) as sp:
+            if side:  # issued on the second stream, beside the luma pass
+                count("overlap_passes")
             uv = torch.cat([planes[1], planes[2]], dim=0)
             if sp:
                 _plane_counts(sp, "uv", uv, interlaced_tff)
+                if side:
+                    sp.set(stream="side")
             offs2 = field_offsets(order, parity, device, repeats=2)
             # output frames per plane, doubled for interlaced (bob) input
             n = planes[1].shape[0] * (1 if interlaced_tff is None else 2)
@@ -244,6 +257,34 @@ def sangnom2_impl(
                 interlaced_tff=interlaced_tff,
             )
         out[1], out[2] = res[:n], res[n:]
+        return res
+
+    def plane_pass(i: int, on_kept: Callable | None = None) -> None:
+        with span(PLANE) as sp:
+            if sp:
+                _plane_counts(sp, i, planes[i], interlaced_tff)
+            out[i] = deinterlace_plane_batch(
+                planes[i], offsets, dh=dh, aaf=aaf_as_pixel(aafs[i], fmt),
+                spec=spec, stride=stride, interp_fn=interp_fn,
+                plane_width=width_of(i), interlaced_tff=interlaced_tff,
+                on_kept=on_kept,
+            )
+
+    beside = False
+    if uv_batched and (dh or process[0]):
+        from sangnom_tpu_torch.ops import deint_kernel
+
+        beside = deint_kernel.overlap_uv(
+            (planes[0].shape, planes[1].shape), [p.device for p in planes[:3]],
+            dh=dh, interlaced=interlaced_tff is not None, stride=stride,
+            spec=spec, kernel=interp_fn is deint_kernel.interpolate_field_batch,
+            plane_widths=plane_widths,
+        )
+    if beside:
+        _beside(device, lambda on_kept: plane_pass(0, on_kept),
+                lambda: uv_pass(side=True))
+    elif uv_batched:
+        uv_pass()
 
     for i, p in enumerate(planes):
         if i in out:
@@ -260,15 +301,50 @@ def sangnom2_impl(
             # src/SangNom2.cpp:369-374); dh forces every plane (361-366).
             out[i] = p
             continue
-        with span(PLANE) as sp:
-            if sp:
-                _plane_counts(sp, i, p, interlaced_tff)
-            out[i] = deinterlace_plane_batch(
-                p, offsets, dh=dh, aaf=aaf_as_pixel(aafs[i], fmt), spec=spec,
-                stride=stride, interp_fn=interp_fn, plane_width=width_of(i),
-                interlaced_tff=interlaced_tff,
-            )
+        plane_pass(i)
     return tuple(out[i] for i in range(len(planes)))
+
+
+# A second CUDA stream a (host thread, device), for the U+V pass that runs
+# beside the luma pass (`_beside`); the CLI's and the hosts' threads each get
+# their own.
+_SIDE = threading.local()
+
+
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    streams = _SIDE.__dict__.setdefault("streams", {})
+    s = streams.get(device)
+    if s is None:
+        s = streams[device] = torch.cuda.Stream(device)
+    return s
+
+
+def _beside(device: torch.device, first: Callable, second: Callable) -> None:
+    """Issue the luma pass ``first(on_kept)`` on the caller's stream and
+    the U+V pass ``second()`` on this thread's second stream; the caller's
+    stream then waits for the second, so every output is complete for the
+    caller's later work and nothing synchronizes the device.
+
+    The second stream starts once the luma pass's kept rows are issued
+    (``on_kept``), which is after the caller's state at entry: so the luma
+    kernel is ready before the U+V copies are, takes its SMs first, one
+    block a SM, and the U+V kernel fills the SMs left free.  Started at
+    entry instead, the U+V copies and kernel ran beside K4's launch on the
+    maa pass, and K4's walk took 6.6 ms in most calls against 3.95 alone
+    (H100).
+
+    The U+V output, allocated on the second stream, is marked in use on
+    the caller's, so the allocator does not hand its memory to the second
+    stream's next pass before the caller's work on it is done.  What the
+    second pass only reads (the planes, the offsets) is freed after the
+    caller's wait, so later work never overwrites it early."""
+    caller = torch.cuda.current_stream(device)
+    side = _side_stream(device)
+    first(lambda: side.wait_event(caller.record_event()))
+    with torch.cuda.stream(side):
+        res = second()
+    res.record_stream(caller)
+    caller.wait_stream(side)
 
 
 def _plane_counts(sp, plane, src: torch.Tensor, interlaced_tff) -> None:

@@ -158,6 +158,19 @@ class Plan(NamedTuple):
     pitch_p: int
 
 
+def one_wave_smem(blocks: int, smem_bytes: int, card: dk.Card) -> int:
+    """The shared memory a block of a K4 pass of ``blocks`` blocks asks
+    for: where they fit one a SM, more than half of a SM's, so no SM takes
+    two.  Two K4 blocks on one SM each walk at half speed (maa luma 7.75
+    ms against 3.95 on an H100), and the scheduler doubled them up on SMs
+    freed early when other kernels ran beside the launch (the U+V pass's
+    copies on a second stream); one a SM, the pass never waits on
+    another's."""
+    if blocks > card.sms:
+        return smem_bytes
+    return max(smem_bytes, card.smem_sm // 2 - dk.SMEM_RESERVED + 1)
+
+
 def full_plan(n_space: int, W_loc: int, bufH: int, elem: int, limit: int,
               chunk_rows: int | None = None, cluster: bool | None = None) -> Plan:
     """K4's plan for a pass of ``bufH`` kept rows, shards of ``W_loc``
@@ -301,7 +314,8 @@ def full_pass(kept: torch.Tensor, offsets, aaf, spec: KernelSpec, n_space: int,
     """K4 over a plane pass: ``kept`` [N, bufH, S] (storage dtype, contiguous,
     S = n_space * W_loc) -> the woven plane [N, 2*bufH, S] (``offsets`` 0, 1
     or a per-field [N] tensor) or, with ``offsets`` None, the interpolated
-    rows [N, bufH-1, S].  ``cluster``: the route, as `full_plan` takes it."""
+    rows [N, bufH-1, S].  ``cluster``: the route, as `full_plan` takes it.
+    Blocks that fit one a SM ask for `one_wave_smem`."""
     name = "sharded fused kernel"
     N, bufH, S = kept.shape
     W_loc = S // n_space
@@ -314,6 +328,8 @@ def full_pass(kept: torch.Tensor, offsets, aaf, spec: KernelSpec, n_space: int,
     lib = _lib()
     plan = full_plan(n_space, W_loc, bufH, kept.element_size(), dk._max_smem_bytes(lib, kept.device),
                      chunk_rows, cluster)
+    plan = plan._replace(smem_bytes=one_wave_smem(N * n_space, plan.smem_bytes,
+                                                  dk.card_figures(kept.device)))
     scratch = _full_scratch(plan, N * n_space, spec, kept)
     carry = [None, None]  # the chunk route's carried row, [N, 9, S] a launch
     if not plan.cluster:
