@@ -77,6 +77,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from sangnom_tpu_torch.ops import cuda_library as cl
 from sangnom_tpu_torch.utils.cost_model import (
     OPS_FINALIZE, OPS_PREPARE, OPS_SMOOTH, bound, card_line)
 
@@ -933,12 +934,14 @@ def phase_shard_timing(clip_dh, woven, card, details):
     uv = torch.cat([uv, uv[..., -1:].expand(-1, -1, Sc - uv.shape[2])], dim=2).contiguous()
     passes = {"luma": (luma, aaf_as_pixel(aafs[0], fmt), S),
               "U+V": (uv, aaf_as_pixel(aafs[1], fmt), 960)}
-    limit = dk._max_smem_bytes(dk._load(), torch.device(DEVICE))
+    limit = cl.max_smem_bytes(torch.device(DEVICE))
+    card = cl.card_figures(torch.device(DEVICE))
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     res: dict = {}
     for name, (kept, aaf, w) in passes.items():
         Nk, bH, Sk = kept.shape
-        m = _timed(lambda: sk.full_pass(kept, 0, aaf, spec, n, w),
+        run_plan = sk.pass_plan(Nk, n, Sk // n, bH, spec, card)
+        m = _timed(lambda: sk.full_pass(kept, 0, aaf, spec, n, w, run_plan),
                    lambda: fs.deinterlace_fused_full_plain(kept, 0, aaf, spec, n, w), 10)
         m["bound_ms"], m["bound_by"] = bound(*k4_work(Nk, bH, Sk))
         plan = sk.full_plan(n, Sk // n, bH, 1, limit)
@@ -1487,9 +1490,9 @@ def phase_cli_hosts(tmp, fmt, bob_planes, dh_planes, pool_planes, out_bob, out_d
 # --- phases 15-18 ------------------------------------------------------------
 
 AOT_RUN = ("import sys; from sangnom_tpu_torch import cli; "
-           "from sangnom_tpu_torch.ops import deint_kernel as dk; "
+           "from sangnom_tpu_torch.ops import cuda_library as cl; "
            "rc = cli.main(sys.argv[1:]); "
-           "print('BUILDS', dk.BUILDS, 'LIB', dk.LIB_PATH, flush=True); sys.exit(rc)")
+           "print('BUILDS', cl.BUILDS, 'LIB', cl.LIB_PATH, flush=True); sys.exit(rc)")
 
 
 def _subprocess(argv: list, what: str, timeout: int = 600):
@@ -2240,7 +2243,8 @@ def wide_expected(clip, mode: str, stride: int, spec) -> tuple:
     text, nbytes, ops = [], 0, 0
     elem = clip.planes[0].element_size()
     for name, n_fields, bufH, w in wide_passes(clip, mode):
-        fp = dk._card_plan(w, bufH, stride, spec, torch.device(DEVICE))
+        fp = dk.field_plan(n_fields, w, bufH, stride, spec,
+                           cl.card_figures(torch.device(DEVICE)))
         S = width_tiers(w, bufH, stride, spec)[2]
         b_, o_ = deint_work(n_fields, bufH, w, S, elem)
         nbytes, ops = nbytes + b_, ops + o_
@@ -2276,7 +2280,7 @@ def _reset(dk, pk, sk, ws=None):
 
 # K4's (k, R) sweep (`wide_k_sweep`), on the cluster route: the maa pass's
 # 24 luma fields of 3840 columns, whose readings set deint_kernel.wide_plan's
-# rule (WIDE_BLOCK, WIDE_ROWS), and the 15360 bob's luma pass
+# rule (WIDE_BLOCK, WIDE_FIELD_ROWS), and the 15360 bob's luma pass
 WIDE_SWEEP_3840 = [(k, r) for k in (2, 3, 4) for r in (2, 4, 8)] + [(4, 16), (8, 4), (8, 8)]
 WIDE_SWEEP_BOB = [(2, 4), (4, 4), (8, 2), (8, 4), (8, 8), (8, 16)]
 
@@ -2297,7 +2301,8 @@ def wide_k_sweep(name: str, fields, spec, pairs, card: str) -> dict:
     N, bufH, S = fields.shape
     fmt = get_format("GRAY8")  # the passes are 8-bit
     aaf = aaf_as_pixel(scaled_aa_thresholds(48, 0, fmt)[0], fmt)
-    limit = dk._max_smem_bytes(dk._load(), dev)
+    limit = cl.max_smem_bytes(dev)
+    card = cl.card_figures(dev)
     cases = []
     for k, r in pairs:
         if S % k:
@@ -2308,7 +2313,8 @@ def wide_k_sweep(name: str, fields, spec, pairs, card: str) -> dict:
             cases.append(((k, r), plan, occ))
 
     def run(k, r):
-        return sk.full_pass(fields, 0, aaf, spec, k, S, r)
+        return sk.full_pass(fields, 0, aaf, spec, k, S,
+                            sk.pass_plan(N, k, S // k, bufH, spec, card, r))
 
     ref = run(*cases[0][0])
     times = {kr: [] for kr, _, _ in cases}
@@ -2321,7 +2327,7 @@ def wide_k_sweep(name: str, fields, spec, pairs, card: str) -> dict:
             del got
             times[k, r].append(cuda_ms(lambda k=k, r=r: run(k, r), 3))
     del ref
-    fp = dk._card_plan(S, bufH, S, spec, dev)
+    fp = dk.field_plan(N, S, bufH, S, spec, card)
     out = {f"k{k} R{r}": {"ms": min(times[k, r]), "windows": times[k, r], "cols": plan.cols,
                           "threads": plan.threads, "route": plan.route, **occ}
            for (k, r), plan, occ in cases}
@@ -2348,7 +2354,7 @@ def phase_wide(card: str, bob_ms: float, details) -> dict:
     bob's ns a column-row; each count set to 0 just before a call and read
     just after."""
     from sangnom_tpu_torch import bob, get_format, sangnom2
-    from sangnom_tpu_torch.core.fields import _split_plane
+    from sangnom_tpu_torch.core.fields import split_plane
     from sangnom_tpu_torch.core.geometry import (
         aaf_as_pixel, buffer_stride_elems, scaled_aa_thresholds, width_tiers)
     from sangnom_tpu_torch.ops import deint_kernel as dk
@@ -2416,7 +2422,7 @@ def phase_wide(card: str, bob_ms: float, details) -> dict:
         if fname == "GRAY16":
             k4_pass = (clip.planes[0], spec, stride, clip.format)
         if mode == "bob":
-            luma = _split_plane(clip.planes[0], True).contiguous()
+            luma = split_plane(clip.planes[0], True).contiguous()
             res["bob luma k sweep"] = wide_k_sweep("bob luma pass", luma, spec,
                                                    WIDE_SWEEP_BOB, card)
             del luma
@@ -2503,7 +2509,7 @@ def phase_wide(card: str, bob_ms: float, details) -> dict:
     n = 2 * k
     passes = wide_passes(clip, "single")
     route, work = [], [0, 0]
-    limit = dk._max_smem_bytes(dk._load(), torch.device(DEVICE))
+    limit = cl.max_smem_bytes(torch.device(DEVICE))
     for pname, nf, bufH, w in passes:
         S_eff = _sharded_pad_width(w, 2 * bufH, stride, n, clip.format, False)
         plan = sk.full_plan(n, S_eff // n, bufH, 1, limit)
@@ -2584,8 +2590,8 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    compile_s = dk.build()
-    dk._load()
+    compile_s = cl.build()
+    cl.load()
     log(f"[2 build] kernel library built from {SOURCE}, {POOL_SOURCE}, {SHARD_SOURCE} "
         f"and {PROBE_SOURCE} "
         f"(one nvcc each, in parallel) in {compile_s:.1f} s "
@@ -2694,7 +2700,7 @@ def main() -> int:
     kernel, plain = dk.deinterlace_field_batch_fused, dk.deinterlace_field_batch_plain
     per_launch = [cuda_ms(lambda a=a: kernel(a[0], a[1], a[2], spec, stride, a[3]), 10)
                   for a in launches_bob]
-    smem_limit = dk._max_smem_bytes(dk._load(), torch.device(DEVICE))
+    smem_limit = cl.max_smem_bytes(torch.device(DEVICE))
     plans = [dk.launch_plan(s.shape[2], width_tiers(s.shape[2], s.shape[1] // 2, stride, spec)[2],
                             s.element_size(), smem_limit) for s, _, _, _ in launches_bob]
     steps = [src.shape[1] // 2 - 1 for src, _, _, _ in launches_bob]  # 539, 269

@@ -3,12 +3,12 @@
 The reference is an AOT-compiled .so: its first frame at any resolution
 costs nothing beyond the library load (reference src/SangNom2.cpp:312-329).
 A fresh process of this package pays, before its first output, the nvcc
-build of the CUDA kernel library (``ops.deint_kernel``) and its load; there
+build of the CUDA kernel library (``ops.cuda_library``) and its load; there
 is no traced program to serialize, because PyTorch runs eagerly.  So an
 artifact directory holds:
 
 * the kernel library, built once into the directory under its
-  `deint_kernel.source_hash` (``libsangnom_cuda-<hash>.so``); a process
+  `cuda_library.source_hash` (``libsangnom_cuda-<hash>.so``); a process
   with this module configured loads it from there and never runs nvcc;
 * one small JSON artifact per dispatch: (kind, format, per-plane shapes and
   dtypes, statics, device name and compute capability), with the library
@@ -63,13 +63,13 @@ def is_configured() -> bool:
 
 def library_path() -> Path | None:
     """The configured directory's kernel library of the current
-    `deint_kernel.source_hash`, or None (unconfigured, or not there)."""
+    `cuda_library.source_hash`, or None (unconfigured, or not there)."""
     aot_dir = _AOT_DIR
     if aot_dir is None:
         return None
-    from sangnom_tpu_torch.ops import deint_kernel
+    from sangnom_tpu_torch.ops import cuda_library
 
-    path = aot_dir / deint_kernel.library_name()
+    path = aot_dir / cuda_library.library_name()
     return path if path.exists() else None
 
 
@@ -153,18 +153,18 @@ def save_program(aot_dir, kind: str, fmt, shapes, statics: dict, *,
     """Write one dispatch's artifact; returns its path.  For a card, the
     kernel library of the current sources is built into ``aot_dir`` first
     (nvcc), unless it is already there."""
-    from sangnom_tpu_torch.ops import deint_kernel
+    from sangnom_tpu_torch.ops import cuda_library
 
     if kind not in ("filter", "bob"):
         raise ValueError(f"unknown AOT program kind {kind!r}")
     aot_dir = Path(aot_dir)
     aot_dir.mkdir(parents=True, exist_ok=True)
     if torch.device(device).type == "cuda":
-        lib = aot_dir / deint_kernel.library_name()
+        lib = aot_dir / cuda_library.library_name()
         if not lib.exists():
-            deint_kernel.compile_library(lib)
+            cuda_library.compile_library(lib)
     art = {**_canonical(kind, fmt.name, shapes, statics, device),
-           "library": deint_kernel.source_hash()}
+           "library": cuda_library.source_hash()}
     path = aot_dir / f"{program_key(kind, fmt.name, shapes, statics, device=device)}{_SUFFIX}"
     _write_atomic(path, json.dumps(art, sort_keys=True).encode())
     return path
@@ -186,9 +186,9 @@ def _check_artifact(path: Path, want: dict) -> None:
     if got != want:
         raise ValueError("its key does not match its name")
     if want["device"]["type"] == "cuda":
-        from sangnom_tpu_torch.ops import deint_kernel
+        from sangnom_tpu_torch.ops import cuda_library
 
-        if not (path.parent / deint_kernel.library_name()).exists():
+        if not (path.parent / cuda_library.library_name()).exists():
             raise ValueError("the kernel library is missing")
 
 
@@ -248,10 +248,10 @@ def lookup(kind: str, fmt_name: str, shapes, statics: dict, *,
     path = aot_dir / f"{key}{_SUFFIX}"
     ok = False
     if path.exists():
-        from sangnom_tpu_torch.ops import deint_kernel
+        from sangnom_tpu_torch.ops import cuda_library
 
         want = {**_canonical(kind, fmt_name, shapes, statics, device),
-                "library": deint_kernel.source_hash()}
+                "library": cuda_library.source_hash()}
         try:
             _check_artifact(path, want)
             ok = True

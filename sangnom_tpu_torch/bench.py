@@ -372,13 +372,13 @@ def run(device="cuda", sizes: Sizes = FULL, headline_only: bool = False) -> tupl
 
     build_s = 0.0
     if on_card:
-        from sangnom_tpu_torch.ops import deint_kernel
+        from sangnom_tpu_torch.ops import cuda_library
 
         t0 = time.perf_counter()
-        deint_kernel._load()  # builds the kernel library unless it is current
+        cuda_library.load()  # builds the kernel library unless it is current
         build_s = time.perf_counter() - t0
         log(f"kernel library: built or loaded in {build_s:.1f} s "
-            f"({deint_kernel.BUILDS} nvcc build(s))")
+            f"({cuda_library.BUILDS} nvcc build(s))")
 
     fmt = get_format("YUV420P8")
     rng = np.random.default_rng(7)

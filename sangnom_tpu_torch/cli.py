@@ -135,9 +135,9 @@ def _setup_device(args) -> None:
             "(torch.cuda.is_available() is False); pass --device cpu to "
             "run on the CPU")
     if args.cache_dir:
-        from sangnom_tpu_torch.ops import deint_kernel
+        from sangnom_tpu_torch.ops import cuda_library
 
-        deint_kernel.set_build_dir(args.cache_dir)
+        cuda_library.set_build_dir(args.cache_dir)
 
 
 def _parse_fps(text: str) -> tuple[int, int]:
@@ -559,7 +559,7 @@ def _prewarm_main(argv: list[str]) -> int:
                                        _validate, _validate_geometry,
                                        _validate_numerics)
     from sangnom_tpu_torch.core.formats import get_format
-    from sangnom_tpu_torch.ops import deint_kernel
+    from sangnom_tpu_torch.ops import cuda_library
 
     t0 = time.perf_counter()
     try:
@@ -614,12 +614,12 @@ def _prewarm_main(argv: list[str]) -> int:
 
         for kind, n, statics in jobs:
             tj = time.perf_counter()
-            builds = deint_kernel.BUILDS
+            builds = cuda_library.BUILDS
             path = aot.save_program(args.aot, kind, fmt, shapes(n), statics,
                                     device=args.device)
             dt_save = time.perf_counter() - tj
-            if deint_kernel.BUILDS > builds:
-                print(f"  {deint_kernel.library_name()}: kernel library "
+            if cuda_library.BUILDS > builds:
+                print(f"  {cuda_library.library_name()}: kernel library "
                       f"built in {dt_save:.1f}s", file=sys.stderr)
             note = ""
             if args.warm_call:

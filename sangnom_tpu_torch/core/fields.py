@@ -22,7 +22,7 @@ from sangnom_tpu_torch.core.clip import Clip, where_storage
 from sangnom_tpu_torch.utils.profiling import CALL, span
 
 
-def _split_plane(p: torch.Tensor, tff: bool) -> torch.Tensor:
+def split_plane(p: torch.Tensor, tff: bool) -> torch.Tensor:
     """[N, H, W] -> [2N, H/2, W] field frames in dominance order (row index
     2r+b factors as [r, b])."""
     n, h, w = p.shape
@@ -43,7 +43,7 @@ def separate_fields(clip: Clip, tff: bool | None = None) -> Clip:
     tff = clip.tff if tff is None else tff
     parity = np.tile(np.array([tff, not tff]), clip.num_frames)
     return Clip(
-        [_split_plane(p, tff) for p in clip.planes],
+        [split_plane(p, tff) for p in clip.planes],
         clip.format,
         parity=parity,
         tff=tff,

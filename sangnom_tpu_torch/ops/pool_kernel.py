@@ -23,7 +23,7 @@ kernels of ``sangnom_tpu/ops/pool_carry.py``:
                      (the walk over 9K maps, one block a map) and
                      ``finalize_batch``.
 
-A pool wider than one block's columns (S > ``dk.MAX_COLS``, 8192) walks
+A pool wider than one block's columns (S > ``MAX_COLS``, 8192) walks
 in the same kernel's wide instantiation instead (`walk_plan`): a map's row split over ``k``
 blocks, each owning ``W_loc`` columns plus a halo of ``H = 3R`` columns on
 each inner side, the ``k`` blocks of a map in one thread-block cluster
@@ -38,7 +38,7 @@ Each wrapper checks shapes, dtypes and layout, then on a CPU tensor runs
 its plain PyTorch twin (the ``*_plain`` functions) and on a CUDA tensor
 launches its kernel or raises.  Kept rows may be strided (a field read in
 place from its frame); columns must be contiguous.  The kernels are built
-with the field kernel's library (``deint_kernel.build``).  ``LAUNCHES``
+with the rest of the library (``ops.cuda_library``).  ``LAUNCHES``
 counts launches per wrapper; a K7 pass counts one "prepare", one "split3"
 and one "finalize", and so does a batched pass, whatever its frame count.
 The wide walk counts under its wrapper's key ("smooth" for K3, "split3"
@@ -52,13 +52,15 @@ from typing import NamedTuple
 
 import torch
 
-from sangnom_tpu_torch.ops import deint_kernel as dk
+from sangnom_tpu_torch.ops import cuda_library as cl
+from sangnom_tpu_torch.ops.launch_geometry import (
+    MAX_CLUSTER, MAX_COLS, ROW_THREADS, block_width, launch_shape, least_split, row_blocks)
 from sangnom_tpu_torch.ops.primitives import KernelSpec, smooth_writeback
 from sangnom_tpu_torch.utils.profiling import LAUNCH, span
 from sangnom_tpu_torch.ops.reference import (
-    _hbox7,
     error_maps_list,
     finalize_select_from_taps,
+    hbox7,
     pair_taps,
     smooth_scan,
 )
@@ -67,60 +69,34 @@ from sangnom_tpu_torch.ops.reference import (
 LAUNCHES = {"smooth": 0, "split3": 0, "prepare": 0, "finalize": 0}
 
 _MAPS = 9
-_bound = False
 # Rows between the wide walk's halo exchanges.  The walk reads a raw row at
 # its halo columns D rows ahead (csrc/pool.cu Prefetch::kDepth: 2 or 8)
 # while the neighbour smooths that row in place, so a cluster barrier must
 # fall between the two: R <= D + 1 for every build, which the launcher
 # checks.
 WIDE_ROWS = 3
-_NO_CLUSTER = -1  # the launcher's code for a cluster that cannot be scheduled
-_cluster_ok: dict = {}  # (device, dtype code, sse2, plan) -> clusters fit
+
+cl.declare({
+    "sno_pool_smooth_launch": "iiipiiip",  # dtype sse2 cols pool P S threads stream
+    "sno_pool_smooth_split3_launch": "iiippp iiip",  # ... row0 body tail P S threads stream
+    "sno_pool_prepare_launch": "iippq iiii p",  # dtype sse2 kept body pitch P R w S stream
+    # dtype sse2 kept body interp pitch P R w S aaf stream
+    "sno_pool_finalize_launch": "iippp q iiii dp",
+    "sno_pool_smooth_batch_launch": "iiippp iiii p",  # ... row0 body tail maps P S threads stream
+    "sno_pool_smooth_occupancy": "iiiiiP",  # dtype sse2 cols S threads blocks
+    "sno_pool_prepare_batch_launch": "iippqq iiiii p",  # ... kept_fs pitch frames P R w S stream
+    # ... kept_fs pitch interp_fs frames P R w S aaf stream
+    "sno_pool_finalize_batch_launch": "iippp qqq iiiii dp",
+    # dtype sse2 cols row0 in body tail | their map strides | maps k n S W_loc
+    # H R base steps pitch cluster | threads smem stream
+    "sno_pool_wide_launch": "iiipppp qqqq iiiiiiiiiii iip",
+    "sno_pool_wide_query": "iiiiiiP",
+})
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _lib() -> ctypes.CDLL:
-    global _bound
-    lib = dk._load()
-    if not _bound:
-        i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-        lib.sno_pool_smooth_launch.argtypes = [
-            i, i, i, p, i, i, i, p]  # dtype sse2 cols pool P S threads stream
-        lib.sno_pool_smooth_split3_launch.argtypes = [
-            i, i, i, p, p, p, i, i, i, p]  # ... row0 body tail P S threads stream
-        lib.sno_pool_prepare_launch.argtypes = [
-            i, i, p, p, ll, i, i, i, i, p]  # dtype sse2 kept body pitch P R w S stream
-        lib.sno_pool_finalize_launch.argtypes = [
-            i, i, p, p, p, ll, i, i, i, i,  # dtype sse2 kept body interp pitch P R w S
-            ctypes.c_double, p]  # aaf stream
-        lib.sno_pool_smooth_batch_launch.argtypes = [
-            i, i, i, p, p, p, i, i, i, i, p]  # ... row0 body tail maps P S threads stream
-        lib.sno_pool_smooth_occupancy.argtypes = [
-            i, i, i, i, i, ctypes.POINTER(i)]  # dtype sse2 cols S threads blocks
-        lib.sno_pool_prepare_batch_launch.argtypes = [
-            i, i, p, p, ll, ll, i, i, i, i, i, p]  # ... kept_fs pitch frames P R w S stream
-        lib.sno_pool_finalize_batch_launch.argtypes = [
-            i, i, p, p, p, ll, ll, ll, i, i, i, i, i,  # ... kept_fs pitch interp_fs frames P R w S
-            ctypes.c_double, p]  # aaf stream
-        lib.sno_pool_wide_launch.argtypes = [
-            i, i, i, p, p, p, p,  # dtype sse2 cols row0 in body tail
-            ll, ll, ll, ll,  # their map strides
-            i, i, i, i, i, i, i, i, i, i, i,  # maps k n S W_loc H R base steps pitch cluster
-            i, i, p]  # threads smem stream
-        lib.sno_pool_wide_query.argtypes = [i, i, i, i, i, i, ctypes.POINTER(i)]
-        for fn in (lib.sno_pool_smooth_launch, lib.sno_pool_smooth_split3_launch,
-                   lib.sno_pool_prepare_launch, lib.sno_pool_finalize_launch,
-                   lib.sno_pool_smooth_batch_launch, lib.sno_pool_smooth_occupancy,
-                   lib.sno_pool_prepare_batch_launch,
-                   lib.sno_pool_finalize_batch_launch, lib.sno_pool_wide_launch,
-                   lib.sno_pool_wide_query):
-            fn.restype = ctypes.c_int
-        _bound = True
-    return lib
 
 
 def _check_acc(name: str, spec: KernelSpec, *tensors: torch.Tensor) -> None:
@@ -160,7 +136,7 @@ def _check_kept(name: str, spec: KernelSpec, kept: torch.Tensor, P: int, S: int,
         raise ValueError(f"{name}: kept must be [bufH_p, w], got {tuple(kept.shape)}")
     if kept.device != device:
         raise ValueError(f"{name}: kept and pool on different devices")
-    if kept.dtype != dk._storage_dtype(spec):
+    if kept.dtype != cl.storage_dtype(spec):
         raise ValueError(f"{name}: dtype {kept.dtype} does not match the kernel "
                          f"spec {spec}")
     bufH_p, w = kept.shape
@@ -172,20 +148,13 @@ def _check_kept(name: str, spec: KernelSpec, kept: torch.Tensor, P: int, S: int,
                          f"pool [9, {P + 1}, {S}] (needs 2 <= rows <= P)")
 
 
-def _common(spec: KernelSpec, device: torch.device):
-    """(dtype code, sse2 flag, stream) of a launch."""
-    code = dk._DTYPE_CODE[dk._storage_dtype(spec)]
-    sse2 = int(spec.sse2 and not spec.is_float)
-    return code, sse2, torch.cuda.current_stream(device).cuda_stream
-
-
 # --- the walk's plan: one block a map, or a map's row over a cluster ---------
 
 class WalkPlan(NamedTuple):
     """How the walk over a pool of stride S runs (see ``csrc/pool.cu``).
 
     ``k`` blocks a map: 1 is the one-block walk (``pool_smooth_kernel``,
-    S <= ``dk.MAX_COLS``); above, its wide instantiation with shards of
+    S <= ``MAX_COLS``); above, its wide instantiation with shards of
     ``W_loc`` columns (the last one narrower where W_loc does not divide
     S) and a halo of ``H = 3R`` columns on each inner side.  ``cluster``:
     the k blocks of a map in one cluster, one launch; else ``launches``
@@ -211,14 +180,12 @@ def _line_pitch(W: int, cols: int) -> int:
 
 def walk_plan(S: int, n_steps: int, cluster: bool | None = None) -> WalkPlan:
     """The walk's plan for a pool of stride ``S`` over ``n_steps`` steps:
-    the one-block walk up to ``dk.MAX_COLS`` columns; past it the least
+    the one-block walk up to ``MAX_COLS`` columns; past it the least
     ``k`` whose blocks (own columns and halos) fit one block's columns,
-    on the cluster route up to ``shard_kernel.MAX_CLUSTER`` blocks
-    (``cluster`` None), else the chunk route."""
-    from sangnom_tpu_torch.parallel import shard_kernel as sk
-
-    if S <= dk.MAX_COLS:
-        cols, threads = dk.launch_shape(S)
+    on the cluster route up to ``MAX_CLUSTER`` blocks (``cluster`` None),
+    else the chunk route."""
+    if S <= MAX_COLS:
+        cols, threads = launch_shape(S)
         return WalkPlan(1, S, 0, 0, cols, threads, False, 1, _line_pitch(S, cols),
                         2 * _line_pitch(S, cols) * 4)
     R = WIDE_ROWS
@@ -228,26 +195,26 @@ def walk_plan(S: int, n_steps: int, cluster: bool | None = None) -> WalkPlan:
         W_loc = -(-S // k)
         return (k, W_loc, H) if S - (k - 1) * W_loc >= H else None
 
-    k = sk.least_split(cut, S, dk.MAX_COLS, k0=2)
+    k = least_split(cut, S, MAX_COLS, k0=2)
     W_loc = -(-S // k)
-    W_c = sk.block_width(k, W_loc, H)
-    cluster = cluster is not False and k <= sk.MAX_CLUSTER
-    cols, threads = dk.launch_shape(W_c)
+    W_c = block_width(k, W_loc, H)
+    cluster = cluster is not False and k <= MAX_CLUSTER
+    cols, threads = launch_shape(W_c)
     pitch = _line_pitch(W_c, cols)
     return WalkPlan(k, W_loc, H, R, cols, threads, cluster,
                     1 if cluster else -(-n_steps // R), pitch,
                     2 * pitch * 4 + (2 * 2 * H * 4 if cluster else 0))
 
 
-def _wide_query(lib, code: int, sse2: int, plan: WalkPlan, cluster: int,
-                device) -> list:
+def _wide_query(spec: KernelSpec, plan: WalkPlan, cluster: int, device) -> list:
     """The wide walk's build at ``plan``: registers, spill bytes, blocks a
     SM and clusters of ``cluster`` blocks resident at once (-1: none)."""
+    code, sse2, _ = cl.launch_codes(spec, torch.device(device))
     out = (ctypes.c_int * 4)()
-    with torch.cuda.device(device), dk.LAUNCH_LOCK:
-        dk._check(lib, lib.sno_pool_wide_query(code, sse2, plan.cols, plan.threads,
+    with torch.cuda.device(device), cl.LAUNCH_LOCK:
+        cl.check(cl.load().sno_pool_wide_query(code, sse2, plan.cols, plan.threads,
                                                plan.smem_bytes, cluster, out),
-                  "pool wide walk occupancy query")
+                 "pool wide walk occupancy query")
     return list(out)
 
 
@@ -256,24 +223,13 @@ def card_walk_plan(spec: KernelSpec, S: int, n_steps: int, device) -> WalkPlan:
     (no cluster of k blocks resident) becomes the chunk route, decided
     before any launch."""
     plan = walk_plan(S, n_steps)
-    if not plan.cluster:
+    if not plan.cluster or cl.cluster_fits(
+            cl.device_index(torch.device(device)),
+            ("pool", cl.launch_codes(spec, torch.device(device))[:2], plan.cols,
+             plan.threads, plan.smem_bytes, plan.k),
+            lambda: _wide_query(spec, plan, plan.k, device)[3]):
         return plan
-    lib = _lib()
-    code, sse2, _ = _common(spec, torch.device(device))
-    idx = torch.device(device).index
-    key = (idx, code, sse2, plan.cols, plan.threads, plan.smem_bytes, plan.k)
-    if key not in _cluster_ok:
-        _cluster_ok[key] = _wide_query(lib, code, sse2, plan, plan.k, device)[3] > 0
-    return plan if _cluster_ok[key] else walk_plan(S, n_steps, cluster=False)
-
-
-ROW_THREADS = 256  # threads a block of the prepare and finalize grids (pool.cu)
-
-
-def row_blocks(rows: int, w: int, frames: int) -> int:
-    """Blocks of the prepare and finalize grids of pool.cu and shard.cu
-    (``row_grid``)."""
-    return -(-w // ROW_THREADS) * min(rows, 65535) * frames
+    return walk_plan(S, n_steps, cluster=False)
 
 
 def _walk(name: str, key: str, spec: KernelSpec, row0: torch.Tensor, body: torch.Tensor,
@@ -291,12 +247,12 @@ def _walk(name: str, key: str, spec: KernelSpec, row0: torch.Tensor, body: torch
         sp.set(kernel="pool_smooth_kernel", blocks=maps * plan.k, threads=plan.threads,
                smem_bytes=plan.smem_bytes,
                bytes=(2 * body.numel() + row0.numel() + tail.numel()) * body.element_size())
-    lib = _lib()
-    code, sse2, stream = _common(spec, device)
+    lib = cl.load()
+    code, sse2, stream = cl.launch_codes(spec, device)
     if plan.k == 1:
-        with torch.cuda.device(device), dk.LAUNCH_LOCK:
+        with torch.cuda.device(device), cl.LAUNCH_LOCK:
             err = narrow(lib, code, sse2, plan.cols, plan.threads, stream)
-        dk._check(lib, err, f"{name} launch")
+        cl.check(err, f"{name} launch")
         LAUNCHES[key] += 1
         return
     # the chunk route reads the raw rows from a copy: its launches have no
@@ -305,7 +261,7 @@ def _walk(name: str, key: str, spec: KernelSpec, row0: torch.Tensor, body: torch
                                                 device=device).copy_(body)
     chunks = [(0, n)] if plan.cluster else [
         (base, min(plan.R, n - base)) for base in range(0, n, plan.R)]
-    with torch.cuda.device(device), dk.LAUNCH_LOCK:
+    with torch.cuda.device(device), cl.LAUNCH_LOCK:
         for base, steps in chunks:
             err = lib.sno_pool_wide_launch(
                 code, sse2, plan.cols, row0.data_ptr(), src.data_ptr(), body.data_ptr(),
@@ -313,10 +269,7 @@ def _walk(name: str, key: str, spec: KernelSpec, row0: torch.Tensor, body: torch
                 tail.stride(0), maps, plan.k, n, S, plan.W_loc, plan.H, plan.R, base,
                 steps, plan.pitch, int(plan.cluster), plan.threads, plan.smem_bytes,
                 stream)
-            if err == _NO_CLUSTER:
-                raise RuntimeError(f"{name}: a cluster of {plan.k} blocks cannot be "
-                                   "scheduled on this card")
-            dk._check(lib, err, f"{name} launch")
+            cl.check(err, f"{name} launch", plan.k)
             LAUNCHES[key] += 1
     if sp:
         sp.set(launches=len(chunks))
@@ -347,7 +300,7 @@ def smooth_split_plain_(row0: torch.Tensor, body: torch.Tensor, tail: torch.Tens
             hs = [full[:, g0:g1].clone() for g0, g1, _, _ in spans]
         for q, (g0, g1, cl, cr) in enumerate(spans):
             line = (hs[q] + raw[:, t, g0:g1]) + raw[:, t + 1, g0:g1]
-            hs[q] = smooth_writeback(_hbox7(line), spec)
+            hs[q] = smooth_writeback(hbox7(line), spec)
             body[:, t, g0 + cl:g0 + cr] = hs[q][:, cl:cr]
     return body
 
@@ -438,12 +391,12 @@ def prepare_pool_(kept: torch.Tensor, body: torch.Tensor, spec: KernelSpec) -> t
         if kept.device.type == "cpu":
             return prepare_pool_plain_(kept, body, spec)
         bufH_p, w = kept.shape
-        lib = _lib()
-        code, sse2, stream = _common(spec, kept.device)
-        with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
+        lib = cl.load()
+        code, sse2, stream = cl.launch_codes(spec, kept.device)
+        with torch.cuda.device(kept.device), cl.LAUNCH_LOCK:
             err = lib.sno_pool_prepare_launch(code, sse2, kept.data_ptr(), body.data_ptr(),
                                               kept.stride(0), P, bufH_p - 1, w, S, stream)
-        dk._check(lib, err, f"{name} launch")
+        cl.check(err, f"{name} launch")
         LAUNCHES["prepare"] += 1
         if sp:
             sp.set(kernel="pool_prepare_kernel", blocks=row_blocks(bufH_p - 1, w, 1),
@@ -475,13 +428,13 @@ def finalize_pool(kept: torch.Tensor, body: torch.Tensor, aaf,
             return finalize_pool_plain(kept, body, aaf, spec)
         bufH_p, w = kept.shape
         out = torch.empty((bufH_p - 1, w), dtype=kept.dtype, device=kept.device)
-        lib = _lib()
-        code, sse2, stream = _common(spec, kept.device)
-        with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
+        lib = cl.load()
+        code, sse2, stream = cl.launch_codes(spec, kept.device)
+        with torch.cuda.device(kept.device), cl.LAUNCH_LOCK:
             err = lib.sno_pool_finalize_launch(
                 code, sse2, kept.data_ptr(), body.data_ptr(), out.data_ptr(),
                 kept.stride(0), P, bufH_p - 1, w, S, float(aaf), stream)
-        dk._check(lib, err, f"{name} launch")
+        cl.check(err, f"{name} launch")
         LAUNCHES["finalize"] += 1
         if sp:
             sp.set(kernel="pool_finalize_kernel", blocks=row_blocks(bufH_p - 1, w, 1),
@@ -575,16 +528,15 @@ def walk_occupancy(spec: KernelSpec, S: int, device="cuda") -> tuple[int, int]:
     ``S`` on a card: a batched walk of 9K blocks runs in
     ceil(9K / (blocks x SMs)) waves; past one block's columns, the wide
     walk's blocks, k a map (`walk_clusters`)."""
-    lib = _lib()
     plan = walk_plan(S, 1)
-    code, sse2, _ = _common(spec, torch.device(device))
     if plan.k > 1:
-        return plan.threads, _wide_query(lib, code, sse2, plan, 1, device)[2]
+        return plan.threads, _wide_query(spec, plan, 1, device)[2]
+    code, sse2, _ = cl.launch_codes(spec, torch.device(device))
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):
-        dk._check(lib, lib.sno_pool_smooth_occupancy(code, sse2, plan.cols, S,
-                                                     plan.threads, ctypes.byref(blocks)),
-                  "pool walk occupancy query")
+        cl.check(cl.load().sno_pool_smooth_occupancy(code, sse2, plan.cols, S, plan.threads,
+                                                     ctypes.byref(blocks)),
+                 "pool walk occupancy query")
     return plan.threads, blocks.value
 
 
@@ -593,11 +545,9 @@ def walk_clusters(spec: KernelSpec, S: int, n_steps: int, device="cuda") -> dict
     route and shared memory, and the build's registers, spill bytes,
     blocks a SM and clusters of k blocks resident at once (a batched walk
     of 9K maps runs in ceil(9K / clusters) waves)."""
-    lib = _lib()
     plan = card_walk_plan(spec, S, n_steps, device)
-    code, sse2, _ = _common(spec, torch.device(device))
-    regs, spill, per_sm, clusters = _wide_query(lib, code, sse2, plan,
-                                                plan.k if plan.cluster else 1, device)
+    regs, spill, per_sm, clusters = _wide_query(spec, plan, plan.k if plan.cluster else 1,
+                                                device)
     return {"k": plan.k, "cluster": plan.cluster, "launches": plan.launches,
             "threads": plan.threads, "cols": plan.cols, "smem_bytes": plan.smem_bytes,
             "registers": regs, "spill_bytes": spill, "blocks_per_sm": per_sm,
@@ -629,13 +579,13 @@ def prepare_batch_(kept: torch.Tensor, body: torch.Tensor, spec: KernelSpec) -> 
             return prepare_batch_plain_(kept, body, spec)
         K, bufH_p, w = kept.shape
         P, S = body.shape[2] + 1, body.shape[3]
-        lib = _lib()
-        code, sse2, stream = _common(spec, kept.device)
-        with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
+        lib = cl.load()
+        code, sse2, stream = cl.launch_codes(spec, kept.device)
+        with torch.cuda.device(kept.device), cl.LAUNCH_LOCK:
             err = lib.sno_pool_prepare_batch_launch(
                 code, sse2, kept.data_ptr(), body.data_ptr(), kept.stride(0),
                 kept.stride(1), K, P, bufH_p - 1, w, S, stream)
-        dk._check(lib, err, f"{name} launch")
+        cl.check(err, f"{name} launch")
         LAUNCHES["prepare"] += 1
         if sp:
             sp.set(kernel="pool_prepare_kernel", blocks=row_blocks(bufH_p - 1, w, K),
@@ -670,14 +620,14 @@ def finalize_batch(kept: torch.Tensor, body: torch.Tensor, aaf,
         K, bufH_p, w = kept.shape
         P, S = body.shape[2] + 1, body.shape[3]
         out = torch.empty((K, bufH_p - 1, w), dtype=kept.dtype, device=kept.device)
-        lib = _lib()
-        code, sse2, stream = _common(spec, kept.device)
-        with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
+        lib = cl.load()
+        code, sse2, stream = cl.launch_codes(spec, kept.device)
+        with torch.cuda.device(kept.device), cl.LAUNCH_LOCK:
             err = lib.sno_pool_finalize_batch_launch(
                 code, sse2, kept.data_ptr(), body.data_ptr(), out.data_ptr(),
                 kept.stride(0), kept.stride(1), out.stride(0), K, P, bufH_p - 1, w,
                 S, float(aaf), stream)
-        dk._check(lib, err, f"{name} launch")
+        cl.check(err, f"{name} launch")
         LAUNCHES["finalize"] += 1
         if sp:
             sp.set(kernel="pool_finalize_kernel", blocks=row_blocks(bufH_p - 1, w, K),

@@ -70,7 +70,7 @@ def error_maps_from_taps(taps, preds) -> torch.Tensor:
     return torch.stack(error_maps_list(taps, preds))
 
 
-def _hbox7(line: torch.Tensor) -> torch.Tensor:
+def hbox7(line: torch.Tensor) -> torch.Tensor:
     """7-tap horizontal box sum, taps edge-clamped at the line's width (the
     padded stride, reference src/SangNom2.cpp:141-152), summed strictly left
     to right as the C expression does (float exactness)."""
@@ -91,12 +91,12 @@ def smooth_scan(raw: torch.Tensor, spec: KernelSpec,
     zero under the zero-defined contract, carried pool content in
     pool-compat mode, which passes ``init`` = row 0 as the smoothed "row 0"
     seed (zero when None).  ``hbox_fn``: the horizontal 7-tap box sum of one
-    line (default `_hbox7`, clamped at the line's width; the width-sharded
+    line (default `hbox7`, clamped at the line's width; the width-sharded
     scan passes a halo-exchanging one, so the recursion is shared).
     Returns the smoothed rows [bufH-1, ..., S]."""
     bufH = raw.shape[0] - 1
     if hbox_fn is None:
-        hbox_fn = _hbox7
+        hbox_fn = hbox7
     sm = torch.zeros_like(raw[0]) if init is None else init
     out = []
     for b in range(1, bufH):

@@ -109,9 +109,9 @@ def deinterlace_plane_batch(
         return fused_weave(kept, offsets, aaf, spec, stride,
                            interlaced_tff=interlaced_tff)
     if interlaced_tff is not None:
-        from sangnom_tpu_torch.core.fields import _split_plane
+        from sangnom_tpu_torch.core.fields import split_plane
 
-        kept = _split_plane(src, interlaced_tff)
+        kept = split_plane(src, interlaced_tff)
     if weave_ok and shards and kept.shape[2] // shards >= 9:
         # the sharded weave; thinner shards interpolate, then weave below
         return fused_weave(kept, offsets, aaf, spec, stride,

@@ -61,7 +61,7 @@ import torch
 
 from sangnom_tpu_torch.ops.primitives import KernelSpec, smooth_writeback
 from sangnom_tpu_torch.ops.reference import (
-    _hbox7,
+    hbox7,
     error_maps_from_taps,
     finalize_select_from_taps,
     pair_taps,
@@ -202,7 +202,7 @@ def _slot_offsets(offsets, kept: torch.Tensor, devices) -> list:
     slot's device."""
     if offsets is None:
         return [None] * len(devices)
-    offs = fs._offsets(offsets, kept)
+    offs = fs.check_offsets(offsets, kept)
     if isinstance(offs, int):
         return [offs] * len(devices)
     return [offs.to(dev) for dev in devices]
@@ -385,7 +385,7 @@ def scan_pass(kept: torch.Tensor, aaf, spec: KernelSpec, devices,
         lines = [s + r[b] + r[b + 1] for s, r in zip(sm, raws)]
         exchange_halo_across(lines, 3, "row")
         for q, line in enumerate(lines):
-            sm[q] = smooth_writeback(_hbox7(line), spec)
+            sm[q] = smooth_writeback(hbox7(line), spec)
             rows[q].append(sm[q][..., cls[q]:cls[q] + W])
     outs = []
     for q, dev in enumerate(devices):

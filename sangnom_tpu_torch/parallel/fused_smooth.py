@@ -11,7 +11,7 @@ width after R rows.
                               the chunked route (``interpolate_chunked``)
                               runs it between the prepare and finalize
                               kernels.
-  ``interpolate_fused_full``  K4 (``_fused_full``, body ``_full_kernel``):
+  ``interpolate_fused_full``  K4 (``fused_full_plain``, body ``_full_kernel``):
   ``deinterlace_fused_full``  prepare, smoothing and finalize in one kernel;
                               the second also writes the woven plane
                               (offset 0, 1 or per frame).
@@ -32,7 +32,7 @@ or raises: one launch a plane pass, the shards of a field (K4) or of a map
 row (K5) in one thread-block cluster that exchanges the carry's 3R-column
 halo through distributed shared memory every R rows, with no host-side
 exchange; kept rows and raw maps are read in place from the whole plane.  A
-mesh row of more than ``shard_kernel.MAX_CLUSTER`` shards runs the same
+mesh row of more than ``launch_geometry.MAX_CLUSTER`` shards runs the same
 kernels one launch a chunk.  Results do not depend on ``chunk_rows`` (R);
 left None, each route takes its own default (``PLAIN_ROWS``,
 ``shard_kernel.CLUSTER_ROWS``).
@@ -44,7 +44,7 @@ import torch
 
 from sangnom_tpu_torch.ops.primitives import KernelSpec, smooth_writeback
 from sangnom_tpu_torch.ops.reference import (
-    _hbox7,
+    hbox7,
     error_maps_from_taps,
     finalize_select_from_taps,
     pair_taps,
@@ -78,7 +78,7 @@ def _smooth_chunk_plain(smx, rawx, out, base: int, steps: int, HK: int,
     sm = smx
     for s in range(base, base + steps):
         line = sm + rawx[:, :, 1 + s] + rawx[:, :, 2 + s]  # vertical 3-sum
-        sm = smooth_writeback(_hbox7(line), spec)  # taps clamp at W_ext
+        sm = smooth_writeback(hbox7(line), spec)  # taps clamp at W_ext
         if HK:  # re-replicate the computed row's halo on the global boundary shards
             sm[0, :, :HK] = sm[0, :, HK: HK + 1]
             sm[-1, :, HK + W_loc:] = sm[-1, :, HK + W_loc - 1: HK + W_loc]
@@ -189,7 +189,7 @@ def deinterlace_chunked(kept: torch.Tensor, offsets: Offset, aaf, spec: KernelSp
     """The chunked route's weave on a CUDA tensor: kept fields [N, bufH, S]
     -> the woven plane [N, 2*bufH, S] (``offsets`` 0, 1 or per frame),
     written by the finalize kernel."""
-    return _chunked_route(kept, _offsets(offsets, kept), aaf, spec, n_space,
+    return _chunked_route(kept, check_offsets(offsets, kept), aaf, spec, n_space,
                           plane_width, chunk_rows)
 
 
@@ -203,7 +203,7 @@ def interpolate_chunked_plain(kept, aaf, spec, n_space, plane_width=None, chunk_
 def deinterlace_chunked_plain(kept, offsets, aaf, spec, n_space, plane_width=None,
                               chunk_rows=None):
     """Plain version of `deinterlace_chunked`."""
-    return _chunked_route_plain(kept, _offsets(offsets, kept), aaf, spec, n_space,
+    return _chunked_route_plain(kept, check_offsets(offsets, kept), aaf, spec, n_space,
                                 plane_width, chunk_rows)
 
 
@@ -216,7 +216,7 @@ def chunk_geometry_k4(W_loc: int, n_tot: int, chunk_rows: int | None = None):
     return R, 3 * R + 6
 
 
-def _signed(t: torch.Tensor) -> torch.Tensor:
+def signed(t: torch.Tensor) -> torch.Tensor:
     """A bit-identical view CUDA can index-assign (it has no uint16 copy
     through advanced indexing)."""
     return t.view(torch.int16) if t.dtype == torch.uint16 else t
@@ -248,10 +248,10 @@ def _full_chunk_plain(keptx, smx, out, offsets, base: int, steps: int,
         return maps.masked_fill(beyond, 0), taps, preds  # maps [n, N, 9, W_ext]
 
     fidx = torch.arange(N, device=keptx.device)
-    dst = _signed(out)
+    dst = signed(out)
 
     def put(row, val):  # val [n, N, W_ext] -> the central columns of out rows
-        v = _signed(val)[..., HALO: HALO + W_loc].permute(1, 0, 2).reshape(N, -1)
+        v = signed(val)[..., HALO: HALO + W_loc].permute(1, 0, 2).reshape(N, -1)
         dst[fidx, row] = v
 
     off = (torch.full((N,), offsets, device=keptx.device, dtype=torch.long)
@@ -276,7 +276,7 @@ def _full_chunk_plain(keptx, smx, out, offsets, base: int, steps: int,
         if HALO:  # the box's clamp at the global 0/S edges
             line[0, ..., :HALO] = line[0, ..., HALO: HALO + 1]
             line[-1, ..., HALO + W_loc:] = line[-1, ..., HALO + W_loc - 1: HALO + W_loc]
-        sm = smooth_writeback(_hbox7(line), spec)
+        sm = smooth_writeback(hbox7(line), spec)
         res = finalize_select_from_taps(taps, preds, sm.permute(2, 0, 1, 3), aaf, spec)
         res = res.to(keptx.dtype)
         if off is None:
@@ -286,8 +286,11 @@ def _full_chunk_plain(keptx, smx, out, offsets, base: int, steps: int,
     return sm[..., HALO: HALO + W_loc]
 
 
-def _fused_full(kept: torch.Tensor, aaf, spec: KernelSpec, n_space: int,
-                plane_width: int | None, chunk_rows: int | None, offsets):
+def fused_full_plain(kept: torch.Tensor, aaf, spec: KernelSpec, n_space: int,
+                     plane_width: int | None, chunk_rows: int | None, offsets):
+    """K4's plain version, unchecked: ``kept`` [N, bufH, S] over ``n_space``
+    shards -> the interpolated rows, or the woven plane where ``offsets``
+    (as `check_offsets` gives them) is not None."""
     N, bufH, S = kept.shape
     W_loc = S // n_space
     weave = offsets is not None
@@ -325,7 +328,9 @@ def _check_kept(kept: torch.Tensor, spec: KernelSpec, n_space: int) -> None:
         raise ValueError("fused sharded kernel: needs at least 2 kept rows")
 
 
-def _offsets(offsets: Offset, kept: torch.Tensor):
+def check_offsets(offsets: Offset, kept: torch.Tensor):
+    """``offsets`` checked against ``kept``'s fields: 0 or 1, or a [N] int64
+    tensor on ``kept``'s device."""
     if isinstance(offsets, int):
         if offsets not in (0, 1):
             raise ValueError(f"fused sharded kernel: offset {offsets} not in (0, 1)")
@@ -340,11 +345,15 @@ def _offsets(offsets: Offset, kept: torch.Tensor):
 def _full(kept, offsets, aaf, spec, n_space, plane_width, chunk_rows, plain):
     _check_kept(kept, spec, n_space)
     if plain or kept.device.type == "cpu":
-        return _fused_full(kept, aaf, spec, n_space, plane_width, chunk_rows, offsets)
+        return fused_full_plain(kept, aaf, spec, n_space, plane_width, chunk_rows, offsets)
+    from sangnom_tpu_torch.ops.cuda_library import card_figures
     from sangnom_tpu_torch.parallel import shard_kernel
 
-    w_glob = kept.shape[2] if plane_width is None else plane_width
-    return shard_kernel.full_pass(kept, offsets, aaf, spec, n_space, w_glob, chunk_rows)
+    N, bufH, S = kept.shape
+    w_glob = S if plane_width is None else plane_width
+    plan = shard_kernel.pass_plan(N, n_space, S // n_space, bufH, spec,
+                                  card_figures(kept.device), chunk_rows)
+    return shard_kernel.full_pass(kept, offsets, aaf, spec, n_space, w_glob, plan)
 
 
 def interpolate_fused_full(kept: torch.Tensor, aaf, spec: KernelSpec,
@@ -353,7 +362,7 @@ def interpolate_fused_full(kept: torch.Tensor, aaf, spec: KernelSpec,
     """Kept fields [N, bufH, S] (storage dtype, contiguous) -> interpolated
     rows [N, bufH-1, S], over ``n_space`` column shards of at least 9
     columns: on the card one K4 launch (a chunk of R rows per launch above
-    ``shard_kernel.MAX_CLUSTER`` shards); the plain version makes one kept
+    ``launch_geometry.MAX_CLUSTER`` shards); the plain version makes one kept
     exchange, then one chunk and one carry exchange per R rows."""
     return _full(kept, None, aaf, spec, n_space, plane_width, chunk_rows, False)
 
@@ -372,12 +381,12 @@ def deinterlace_fused_full(kept: torch.Tensor, offsets: Offset, aaf,
     [N, 2*bufH, S], kept and interpolated rows interleaved per ``offsets``
     (an int 0/1, or a per-frame [N] tensor of 0/1) with the boundary line
     duplicated, written by K4 straight into the full-width plane."""
-    return _full(kept, _offsets(offsets, kept), aaf, spec, n_space,
+    return _full(kept, check_offsets(offsets, kept), aaf, spec, n_space,
                  plane_width, chunk_rows, False)
 
 
 def deinterlace_fused_full_plain(kept, offsets, aaf, spec, n_space,
                                  plane_width=None, chunk_rows=None):
     """Plain version of `deinterlace_fused_full`."""
-    return _full(kept, _offsets(offsets, kept), aaf, spec, n_space,
+    return _full(kept, check_offsets(offsets, kept), aaf, spec, n_space,
                  plane_width, chunk_rows, True)

@@ -6,19 +6,22 @@ every shard and field, all rows.  ``smooth_pass`` launches K5
 ``prepare`` (``shard_prepare_kernel``) and ``finalize``
 (``shard_finalize_kernel``).  They are the CUDA steps of
 ``parallel.fused_smooth``; the kernels are built with the rest of the
-library (``ops.deint_kernel.build``).  Each function checks its tensors,
+library (``ops.cuda_library``).  Each function checks its tensors,
 launches or raises, and adds one to its ``LAUNCHES`` count per launch.
 
-Launch geometry (pure Python, ``full_plan`` / ``smooth_plan``): a block
+Launch geometry (pure Python, ``full_plan`` / ``smooth_plan``; a K4 pass
+takes `pass_plan`'s, made once and handed to ``full_pass``): a block
 computes its shard's ``W_loc`` columns plus a halo of ``H = 3R`` columns a
 side (none past the plane's edges), and the halo of its carried row is
 refreshed from the neighbouring shards every R rows, R from ``chunk_rows``.
 Two routes, never chosen silently:
 
-  cluster  ``n_space <= MAX_CLUSTER``: the shards of a field (K4) or of a
-           (map, field) row (K5) form one thread-block cluster and exchange
-           the halo through distributed shared memory; one launch a plane
-           pass.  A cluster the card cannot schedule raises RuntimeError.
+  cluster  ``n_space <= MAX_CLUSTER`` (``ops.launch_geometry``): the
+           shards of a field (K4) or of a (map, field) row (K5) form one
+           thread-block cluster and exchange the halo through distributed
+           shared memory; one launch a plane pass.  A K4 cluster the card
+           cannot schedule takes the chunk route (`pass_plan`, decided
+           before any launch); a K5 cluster raises RuntimeError.
   chunk    a mesh row of more shards than a cluster holds: the same kernel,
            one launch per chunk of R rows, the carried row passing through
            device memory between launches (ceil((bufH-1) / R) launches, one
@@ -35,16 +38,15 @@ from typing import NamedTuple
 
 import torch
 
-from sangnom_tpu_torch.ops import deint_kernel as dk
-from sangnom_tpu_torch.ops.pool_kernel import ROW_THREADS, row_blocks
+from sangnom_tpu_torch.ops import cuda_library as cl
+from sangnom_tpu_torch.ops.launch_geometry import (
+    MAX_CLUSTER, ROW_THREADS, block_width, least_split, row_blocks)
 from sangnom_tpu_torch.ops.primitives import KernelSpec
 from sangnom_tpu_torch.utils.profiling import LAUNCH, span
 
 # Kernel launches since import (or since the caller last reset them).
 LAUNCHES = {"full": 0, "smooth": 0, "prepare": 0, "finalize": 0}
 
-# The most blocks a cluster takes (the portable limit on sm_90).
-MAX_CLUSTER = 8
 # The most columns a block takes, its halos included (`shard_shape`).
 MAX_BLOCK = 8184
 # The most columns a block of 4-column threads takes (`shard_shape`): the
@@ -62,8 +64,19 @@ SLOT_ROWS_K5 = 16
 
 _MAPS = 9
 _RING_ROWS = 5  # K4's kept-row ring slots (csrc/shard.cu kRing)
-_NO_CLUSTER = -1  # the launchers' code for a cluster that cannot be scheduled
-_bound = False
+
+cl.declare({
+    # dtype sse2 cols | kept dst offsets gbuf grp gin gout | N n bufH S W_loc H
+    # w_glob | R lo hi weave static_offset dbuf | pitch_b pitch_r pitch_p
+    # cluster_mode | aaf threads smem stream
+    "sno_shard_full_launch": "iii ppppppp iiiiiii iiiiii iiii diip",
+    # dtype sse2 cols raw out | C n bufH S W_loc H R | base steps pitch
+    # cluster_mode | threads smem stream
+    "sno_shard_smooth_launch": "iiipp iiiiiii iiii iip",
+    "sno_shard_prepare_launch": "iippiiiip",
+    "sno_shard_finalize_launch": "iippppiiiiidp",
+    "sno_shard_query": "iiiiiiiP",
+})
 
 
 def reset_launches() -> None:
@@ -87,19 +100,6 @@ def shard_shape(W_c: int) -> tuple[int, int]:
     raise ValueError(f"sharded kernel: {W_c} columns in a block (at most 8184)")
 
 
-def least_split(cut, width: int, cap: int = MAX_BLOCK, k0: int = 1) -> int:
-    """The least k >= ``k0`` that cuts a row of ``width`` columns into
-    blocks of at most ``cap`` columns: ``cut(k)`` gives the cut's (n, W_loc,
-    H), n blocks of W_loc own columns with a halo of H columns on each inner
-    side, or None where k does not cut the row; it fits where
-    `block_width` (n, W_loc, H) <= ``cap``."""
-    for k in range(k0, width + 1):
-        c = cut(k)
-        if c is not None and block_width(*c) <= cap:
-            return k
-    raise ValueError(f"width {width}: no split into blocks of at most {cap} columns")
-
-
 def split_count(width: int, n_space: int, halo: int) -> int:
     """The least k that cuts a row of ``width`` columns, over ``n_space``
     shards, into ``n_space * k`` equal blocks that each fit one block of
@@ -114,7 +114,7 @@ def split_count(width: int, n_space: int, halo: int) -> int:
         n = n_space * k
         return None if width % n else (n, width // n, halo)
 
-    return least_split(cut, width)
+    return least_split(cut, width, MAX_BLOCK)
 
 
 def cluster_rows(n_space: int, W_loc: int, n_steps: int,
@@ -125,12 +125,6 @@ def cluster_rows(n_space: int, W_loc: int, n_steps: int,
     shard only."""
     R = max(1, min(chunk_rows or CLUSTER_ROWS, n_steps, W_loc // 3))
     return R, (3 * R if n_space > 1 else 0)
-
-
-def block_width(n_space: int, W_loc: int, H: int) -> int:
-    """The widest block: an inner shard's W_loc + 2H (W_loc + H with two
-    shards, the whole plane with one)."""
-    return W_loc + min(n_space - 1, 2) * H
 
 
 class Plan(NamedTuple):
@@ -158,7 +152,7 @@ class Plan(NamedTuple):
     pitch_p: int
 
 
-def one_wave_smem(blocks: int, smem_bytes: int, card: dk.Card) -> int:
+def one_wave_smem(blocks: int, smem_bytes: int, card: cl.Card) -> int:
     """The shared memory a block of a K4 pass of ``blocks`` blocks asks
     for: where they fit one a SM, more than half of a SM's, so no SM takes
     two.  Two K4 blocks on one SM each walk at half speed (maa luma 7.75
@@ -168,7 +162,7 @@ def one_wave_smem(blocks: int, smem_bytes: int, card: dk.Card) -> int:
     another's."""
     if blocks > card.sms:
         return smem_bytes
-    return max(smem_bytes, card.smem_sm // 2 - dk.SMEM_RESERVED + 1)
+    return max(smem_bytes, card.smem_sm // 2 - cl.SMEM_RESERVED + 1)
 
 
 def full_plan(n_space: int, W_loc: int, bufH: int, elem: int, limit: int,
@@ -199,6 +193,26 @@ def full_plan(n_space: int, W_loc: int, bufH: int, elem: int, limit: int,
     raise ValueError(f"sharded fused kernel: block width {W_c} exceeds shared memory")
 
 
+def pass_plan(fields: int, n_space: int, W_loc: int, bufH: int, spec: KernelSpec,
+              card: cl.Card, chunk_rows: int | None = None,
+              cluster: bool | None = None) -> Plan:
+    """The plan a K4 pass over ``fields`` fields launches: `full_plan`
+    under the card's shared memory a block, its blocks asking for
+    `one_wave_smem`; a cluster the card cannot schedule (none of the
+    plan's clusters resident, ``sno_shard_query``) takes the chunk route,
+    decided here before any launch.  One shard a field forms no cluster
+    (the launch takes none), so nothing is asked for it."""
+    elem = cl.storage_dtype(spec).itemsize
+    plan = full_plan(n_space, W_loc, bufH, elem, card.smem_block, chunk_rows, cluster)
+    plan = plan._replace(smem_bytes=one_wave_smem(fields * n_space, plan.smem_bytes, card))
+    if (plan.cluster and n_space > 1 and card.device is not None and not cl.cluster_fits(
+            card.device, ("full", spec, n_space, plan),
+            lambda: occupancy("full", spec, plan, n_space,
+                              torch.device("cuda", card.device))["clusters"])):
+        return pass_plan(fields, n_space, W_loc, bufH, spec, card, chunk_rows, False)
+    return plan
+
+
 def smooth_plan(n_space: int, W_loc: int, bufH: int, limit: int,
                 chunk_rows: int | None = None, cluster: bool | None = None) -> Plan:
     """K5's plan for a pass of ``bufH`` kept rows (bufH-1 smoothed rows):
@@ -218,43 +232,6 @@ def smooth_plan(n_space: int, W_loc: int, bufH: int, limit: int,
                 "double", smem, pitch, 0, 0)
 
 
-def _lib() -> ctypes.CDLL:
-    global _bound
-    lib = dk._load()
-    if not _bound:
-        i, p, d = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
-        lib.sno_shard_full_launch.argtypes = [
-            i, i, i,  # dtype, sse2, cols
-            p, p, p, p, p, p, p,  # kept, dst, offsets, gbuf, grp, gin, gout
-            i, i, i, i, i, i, i,  # N, n, bufH, S, W_loc, H, w_glob
-            i, i, i, i, i, i,  # R, lo, hi, weave, static_offset, dbuf
-            i, i, i, i,  # pitch_b, pitch_r, pitch_p, cluster_mode
-            d, i, i, p]  # aaf, threads, smem, stream
-        lib.sno_shard_smooth_launch.argtypes = [
-            i, i, i, p, p,  # dtype, sse2, cols, raw, out
-            i, i, i, i, i, i, i,  # C, n, bufH, S, W_loc, H, R
-            i, i, i, i,  # base, steps, pitch, cluster_mode
-            i, i, p]  # threads, smem, stream
-        lib.sno_shard_prepare_launch.argtypes = [i, i, p, p, i, i, i, i, p]
-        lib.sno_shard_finalize_launch.argtypes = [i, i, p, p, p, p, i, i, i, i, i, d, p]
-        lib.sno_shard_query.argtypes = [i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
-        for fn in (lib.sno_shard_full_launch, lib.sno_shard_smooth_launch,
-                   lib.sno_shard_prepare_launch, lib.sno_shard_finalize_launch,
-                   lib.sno_shard_query):
-            fn.restype = ctypes.c_int
-        _bound = True
-    return lib
-
-
-def check_launch(lib, err: int, what: str, cluster: int) -> None:
-    """Raise on a failed launch: RuntimeError naming the cluster when none
-    of ``cluster`` blocks can be scheduled, else the CUDA error."""
-    if err == _NO_CLUSTER:
-        raise RuntimeError(f"{what}: a cluster of {cluster} blocks cannot be "
-                           "scheduled on this card (cudaOccupancyMaxActiveClusters is 0)")
-    dk._check(lib, err, what)
-
-
 def _check(name: str, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.device.type != "cuda" or t.device != tensors[0].device:
@@ -262,13 +239,6 @@ def _check(name: str, *tensors: torch.Tensor) -> None:
                              f"got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
-
-
-def _codes(spec: KernelSpec, device: torch.device):
-    """(dtype code, sse2 flag, stream) of a launch."""
-    code = dk._DTYPE_CODE[dk._storage_dtype(spec)]
-    sse2 = int(spec.sse2 and not spec.is_float)
-    return code, sse2, torch.cuda.current_stream(device).cuda_stream
 
 
 def _ptr(t):
@@ -292,14 +262,14 @@ def _launch_full(lib, plan: Plan, spec: KernelSpec, kept, out, weave_args, scrat
     with span(LAUNCH) as sp:
         N, bufH, S = kept.shape
         weave, static_offset, offs = weave_args
-        code, sse2, stream = _codes(spec, kept.device)
+        code, sse2, stream = cl.launch_codes(spec, kept.device)
         err = lib.sno_shard_full_launch(
             code, sse2, plan.cols, kept.data_ptr(), out.data_ptr(), _ptr(offs),
             _ptr(scratch[0]), _ptr(scratch[1]), _ptr(gin), _ptr(gout), N, n_space, bufH, S,
             S // n_space, plan.H, w_glob, plan.R, lo, hi, weave, static_offset,
             int(plan.route == "double"), plan.pitch_b, plan.pitch_r, plan.pitch_p,
             int(plan.cluster), float(aaf), plan.threads, plan.smem_bytes, stream)
-        check_launch(lib, err, f"{name} launch", n_space)
+        cl.check(err, f"{name} launch", n_space)
         LAUNCHES["full"] += 1
         if sp:
             sp.set(kernel="shard_full_kernel", blocks=N * n_space, threads=plan.threads,
@@ -309,27 +279,20 @@ def _launch_full(lib, plan: Plan, spec: KernelSpec, kept, out, weave_args, scrat
 
 
 def full_pass(kept: torch.Tensor, offsets, aaf, spec: KernelSpec, n_space: int,
-              w_glob: int, chunk_rows: int | None = None,
-              cluster: bool | None = None) -> torch.Tensor:
-    """K4 over a plane pass: ``kept`` [N, bufH, S] (storage dtype, contiguous,
-    S = n_space * W_loc) -> the woven plane [N, 2*bufH, S] (``offsets`` 0, 1
-    or a per-field [N] tensor) or, with ``offsets`` None, the interpolated
-    rows [N, bufH-1, S].  ``cluster``: the route, as `full_plan` takes it.
-    Blocks that fit one a SM ask for `one_wave_smem`."""
+              w_glob: int, plan: Plan) -> torch.Tensor:
+    """K4 over a plane pass on `pass_plan`'s ``plan``: ``kept`` [N, bufH, S]
+    (storage dtype, contiguous, S = n_space * W_loc) -> the woven plane
+    [N, 2*bufH, S] (``offsets`` 0, 1 or a per-field [N] tensor) or, with
+    ``offsets`` None, the interpolated rows [N, bufH-1, S]."""
     name = "sharded fused kernel"
     N, bufH, S = kept.shape
-    W_loc = S // n_space
-    if kept.dtype != dk._storage_dtype(spec):
+    if kept.dtype != cl.storage_dtype(spec):
         raise ValueError(f"{name}: dtype {kept.dtype} does not match the kernel spec {spec}")
     _check(name, kept)
     weave_args = _weave_args(offsets, kept.device)
     out = torch.empty((N, 2 * bufH if weave_args[0] else bufH - 1, S), dtype=kept.dtype,
                       device=kept.device)
-    lib = _lib()
-    plan = full_plan(n_space, W_loc, bufH, kept.element_size(), dk._max_smem_bytes(lib, kept.device),
-                     chunk_rows, cluster)
-    plan = plan._replace(smem_bytes=one_wave_smem(N * n_space, plan.smem_bytes,
-                                                  dk.card_figures(kept.device)))
+    lib = cl.load()
     scratch = _full_scratch(plan, N * n_space, spec, kept)
     carry = [None, None]  # the chunk route's carried row, [N, 9, S] a launch
     if not plan.cluster:
@@ -338,7 +301,7 @@ def full_pass(kept: torch.Tensor, offsets, aaf, spec: KernelSpec, n_space: int,
     # one kept row: one launch over no steps, which weaves the row
     spans = [(1, bufH)] if plan.cluster else [
         (lo, min(lo + plan.R, bufH)) for lo in range(1, max(bufH, 2), plan.R)]
-    with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
+    with torch.cuda.device(kept.device), cl.LAUNCH_LOCK:
         for k, (lo, hi) in enumerate(spans):
             _launch_full(lib, plan, spec, kept, out, weave_args, scratch,
                          carry[(k + 1) & 1], carry[k & 1], n_space, w_glob, lo, hi, aaf, name)
@@ -358,7 +321,7 @@ def full_chunk(kept: torch.Tensor, out: torch.Tensor, offsets, gin: torch.Tensor
     bufH.  Raw maps are zero at columns >= ``w_glob`` (0: all of them)."""
     name = "sharded fused kernel (one-shard chunk)"
     N, bufH, W = kept.shape
-    if kept.dtype != dk._storage_dtype(spec) or out.dtype != kept.dtype or \
+    if kept.dtype != cl.storage_dtype(spec) or out.dtype != kept.dtype or \
             gin.dtype != spec.acc_dtype or gout.dtype != spec.acc_dtype:
         raise ValueError(f"{name}: dtypes {kept.dtype}, {out.dtype}, {gin.dtype}, "
                          f"{gout.dtype} do not match the kernel spec {spec}")
@@ -371,11 +334,11 @@ def full_chunk(kept: torch.Tensor, out: torch.Tensor, offsets, gin: torch.Tensor
                          f"{tuple(gout.shape)} for kept {tuple(kept.shape)}")
     if not 1 <= lo < hi <= bufH:
         raise ValueError(f"{name}: steps {lo}..{hi - 1} outside 1..{bufH - 1}")
-    lib = _lib()
-    plan = full_plan(1, W, bufH, kept.element_size(), dk._max_smem_bytes(lib, kept.device),
+    lib = cl.load()
+    plan = full_plan(1, W, bufH, kept.element_size(), cl.max_smem_bytes(kept.device),
                      cluster=False)
     scratch = _full_scratch(plan, N, spec, kept)
-    with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
+    with torch.cuda.device(kept.device), cl.LAUNCH_LOCK:
         _launch_full(lib, plan, spec, kept, out, weave_args, scratch, gin, gout, 1,
                      max(0, min(w_glob, W)), lo, hi, aaf, name)
 
@@ -386,12 +349,12 @@ def _launch_smooth(lib, plan: Plan, spec: KernelSpec, raw, out, n_space: int, ba
     device and LAUNCH_LOCK)."""
     with span(LAUNCH) as sp:
         C, bufHp1, S = raw.shape
-        code, sse2, stream = _codes(spec, raw.device)
+        code, sse2, stream = cl.launch_codes(spec, raw.device)
         err = lib.sno_shard_smooth_launch(
             code, sse2, plan.cols, raw.data_ptr(), out.data_ptr(), C, n_space, bufHp1 - 1, S,
             S // n_space, plan.H, plan.R, base, steps, plan.pitch_b, int(plan.cluster),
             plan.threads, plan.smem_bytes, stream)
-        check_launch(lib, err, f"{name} launch", n_space)
+        cl.check(err, f"{name} launch", n_space)
         LAUNCHES["smooth"] += 1
         if sp:
             sp.set(kernel="shard_smooth_kernel", blocks=C * n_space, threads=plan.threads,
@@ -412,12 +375,12 @@ def smooth_pass(raw: torch.Tensor, spec: KernelSpec, n_space: int,
     out = torch.empty((C, bufH - 1, S), dtype=raw.dtype, device=raw.device)
     if out.numel() == 0:
         return out
-    lib = _lib()
+    lib = cl.load()
     W_loc = S // n_space
-    plan = smooth_plan(n_space, W_loc, bufH, dk._max_smem_bytes(lib, raw.device), chunk_rows)
+    plan = smooth_plan(n_space, W_loc, bufH, cl.max_smem_bytes(raw.device), chunk_rows)
     chunks = [(0, bufH - 1)] if plan.cluster else [
         (base, min(plan.R, bufH - 1 - base)) for base in range(0, bufH - 1, plan.R)]
-    with torch.cuda.device(raw.device), dk.LAUNCH_LOCK:
+    with torch.cuda.device(raw.device), cl.LAUNCH_LOCK:
         for base, steps in chunks:
             _launch_smooth(lib, plan, spec, raw, out, n_space, base, steps, name)
     return out
@@ -440,9 +403,9 @@ def smooth_chunk(raw: torch.Tensor, out: torch.Tensor, base: int, steps: int,
     if not (0 <= base and 0 < steps and base + steps <= bufHp1 - 2):
         raise ValueError(f"{name}: steps {base}..{base + steps - 1} outside "
                          f"0..{bufHp1 - 3}")
-    lib = _lib()
-    plan = smooth_plan(1, W, bufHp1 - 1, dk._max_smem_bytes(lib, raw.device), cluster=False)
-    with torch.cuda.device(raw.device), dk.LAUNCH_LOCK:
+    lib = cl.load()
+    plan = smooth_plan(1, W, bufHp1 - 1, cl.max_smem_bytes(raw.device), cluster=False)
+    with torch.cuda.device(raw.device), cl.LAUNCH_LOCK:
         _launch_smooth(lib, plan, spec, raw, out, 1, base, steps, name)
 
 
@@ -452,17 +415,17 @@ def prepare(kept: torch.Tensor, spec: KernelSpec, w_glob: int) -> torch.Tensor:
     ``w_glob``; taps clamp at columns 0 and S-1."""
     with span(LAUNCH) as sp:
         name = "sharded prepare kernel"
-        if kept.dtype != dk._storage_dtype(spec):
+        if kept.dtype != cl.storage_dtype(spec):
             raise ValueError(f"{name}: dtype {kept.dtype} does not match the kernel spec {spec}")
         _check(name, kept)
         N, bufH, S = kept.shape
         raw = torch.empty((_MAPS, N, bufH + 1, S), dtype=spec.acc_dtype, device=kept.device)
-        lib = _lib()
-        code, sse2, stream = _codes(spec, kept.device)
-        with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
+        lib = cl.load()
+        code, sse2, stream = cl.launch_codes(spec, kept.device)
+        with torch.cuda.device(kept.device), cl.LAUNCH_LOCK:
             err = lib.sno_shard_prepare_launch(code, sse2, kept.data_ptr(), raw.data_ptr(),
                                                N, bufH, S, w_glob, stream)
-        dk._check(lib, err, f"{name} launch")
+        cl.check(err, f"{name} launch")
         LAUNCHES["prepare"] += 1
         if sp:
             sp.set(kernel="shard_prepare_kernel", blocks=row_blocks(bufH + 1, S, N),
@@ -490,7 +453,7 @@ def finalize(kept: torch.Tensor, sm: torch.Tensor, aaf, spec: KernelSpec,
     with span(LAUNCH) as sp:
         name = "sharded finalize kernel"
         N, bufH, S = kept.shape
-        if kept.dtype != dk._storage_dtype(spec) or sm.dtype != spec.acc_dtype:
+        if kept.dtype != cl.storage_dtype(spec) or sm.dtype != spec.acc_dtype:
             raise ValueError(f"{name}: dtypes {kept.dtype}, {sm.dtype} do not match the "
                              f"kernel spec {spec}")
         if tuple(sm.shape) != (_MAPS, N, bufH - 1, S):
@@ -499,14 +462,14 @@ def finalize(kept: torch.Tensor, sm: torch.Tensor, aaf, spec: KernelSpec,
         weave, static_offset, offs = _weave_args(offsets, kept.device)
         out = torch.empty((N, 2 * bufH if weave else bufH - 1, S), dtype=kept.dtype,
                           device=kept.device)
-        lib = _lib()
-        code, sse2, stream = _codes(spec, kept.device)
-        with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
+        lib = cl.load()
+        code, sse2, stream = cl.launch_codes(spec, kept.device)
+        with torch.cuda.device(kept.device), cl.LAUNCH_LOCK:
             err = lib.sno_shard_finalize_launch(
                 code, sse2, kept.data_ptr(), sm.data_ptr(), out.data_ptr(),
                 None if offs is None else offs.data_ptr(), N, bufH, S, weave, static_offset,
                 float(aaf), stream)
-        dk._check(lib, err, f"{name} launch")
+        cl.check(err, f"{name} launch")
         LAUNCHES["finalize"] += 1
         if sp:
             sp.set(kernel="shard_finalize_kernel", blocks=row_blocks(bufH, S, N),
@@ -521,13 +484,13 @@ def occupancy(kernel: str, spec: KernelSpec, plan: Plan, n_space: int,
     """What the card makes of a plan: registers and spill bytes a thread,
     blocks a SM, and clusters of ``n_space`` blocks resident at once (-1
     without a cluster).  ``kernel``: "full" (K4) or "smooth" (K5)."""
-    lib = _lib()
-    code, sse2, _ = _codes(spec, device)
+    lib = cl.load()
+    code, sse2, _ = cl.launch_codes(spec, device)
     out = (ctypes.c_int * 4)()
-    with torch.cuda.device(device), dk.LAUNCH_LOCK:
+    with torch.cuda.device(device), cl.LAUNCH_LOCK:
         err = lib.sno_shard_query(0 if kernel == "full" else 1, code, sse2, plan.cols,
                                   plan.threads, plan.smem_bytes,
                                   n_space if plan.cluster else 1, out)
-    dk._check(lib, err, "sharded kernel occupancy query")
+    cl.check(err, "sharded kernel occupancy query")
     return {"registers": out[0], "spill_bytes": out[1], "blocks_per_sm": out[2],
             "clusters": out[3]}

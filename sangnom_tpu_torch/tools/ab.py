@@ -33,7 +33,7 @@ def ptxas_report(tree: Path, name_re: str) -> list[str]:
     lines of each kernel instantiation whose mangled name matches
     ``name_re`` (a regex whose first group names the kernel and second, if
     it matched, its template arguments)."""
-    code = "from sangnom_tpu_torch.ops import deint_kernel as dk; dk.build(verbose=True)"
+    code = "from sangnom_tpu_torch.ops import cuda_library as cl; cl.build(verbose=True)"
     p = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
                        text=True, env={**os.environ, "PYTHONPATH": str(tree)})
     if p.returncode:

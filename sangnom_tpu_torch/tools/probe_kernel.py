@@ -4,7 +4,7 @@
 (``line_kernel`` and ``step_kernel``, counted as "calibrate", and for the
 mm arms ``mm_kernel`` or ``mmf32_kernel``, counted as "mm") and ``isolate``
 K9 (``isolate_kernel``).  The kernels are built with the rest of the library
-(``ops.deint_kernel.build``).  Each function checks its tensors, launches
+(``ops.cuda_library``).  Each function checks its tensors, launches
 or raises, and adds one to its ``LAUNCHES`` count.
 
 ``line_plan``, ``isolate_plan`` and ``dynrow_plan`` give the grid a K8, K9
@@ -17,12 +17,11 @@ thread.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
-from sangnom_tpu_torch.ops import deint_kernel as dk
+from sangnom_tpu_torch.ops import cuda_library as cl
 
 # Kernel launches since import (or since the caller last reset them).
 LAUNCHES = {"dynrow": 0, "calibrate": 0, "mm": 0, "isolate": 0}
@@ -41,7 +40,12 @@ ISOLATE_CODES = {name: i for i, name in enumerate((
 
 _G = 120
 _W = 2048
-_bound = False
+
+cl.declare({
+    "sno_probe_dynrow_launch": "ipp iiiiiiii p",
+    "sno_probe_calibrate_launch": "iippp iiiiii p",
+    "sno_probe_isolate_launch": "iiiii pp iiiii p",
+})
 
 # The C, contiguous columns a thread, each kernel is built for: the winner of
 # a sweep of C over 4 and 8 on the card (PERF.md section 6).  line_kernel 4:
@@ -210,21 +214,6 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    global _bound
-    lib = dk._load()
-    if not _bound:
-        i, p = ctypes.c_int, ctypes.c_void_p
-        lib.sno_probe_dynrow_launch.argtypes = [i, p, p, i, i, i, i, i, i, i, i, p]
-        lib.sno_probe_calibrate_launch.argtypes = [i, i, p, p, p, i, i, i, i, i, i, p]
-        lib.sno_probe_isolate_launch.argtypes = [i, i, i, i, i, p, p, i, i, i, i, i, p]
-        for f in (lib.sno_probe_dynrow_launch, lib.sno_probe_calibrate_launch,
-                  lib.sno_probe_isolate_launch):
-            f.restype = ctypes.c_int
-        _bound = True
-    return lib
-
-
 def _check(name: str, t: torch.Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: needs a CUDA tensor, got {t.device}")
@@ -249,12 +238,12 @@ def dynrow(kept: torch.Tensor, steps: int) -> torch.Tensor:
         return out
     u8 = kept.dtype == torch.uint8
     plan = dynrow_plan(H, S, steps, u8)
-    lib = _lib()
-    with torch.cuda.device(kept.device), dk.LAUNCH_LOCK:
+    lib = cl.load()
+    with torch.cuda.device(kept.device), cl.LAUNCH_LOCK:
         err = lib.sno_probe_dynrow_launch(int(u8), kept.data_ptr(), out.data_ptr(), H, S,
                                           steps, plan.cols, plan.rows, plan.blocks,
                                           plan.threads, plan.smem_bytes, _stream(kept))
-    dk._check(lib, err, f"{name} launch")
+    cl.check(err, f"{name} launch")
     LAUNCHES["dynrow"] += 1
     return out
 
@@ -281,13 +270,13 @@ def calibrate(src: torch.Tensor, kind: str, k: int, steps: int,
     plan = line_plan(kind, w)
     alloc = torch.zeros if kind == "mmroll" else torch.empty  # mmroll adds into out
     out = alloc((steps, G, 128), dtype=torch.int32, device=src.device)
-    lib = _lib()
-    with torch.cuda.device(src.device), dk.LAUNCH_LOCK:
+    lib = cl.load()
+    with torch.cuda.device(src.device), cl.LAUNCH_LOCK:
         err = lib.sno_probe_calibrate_launch(
             CALIBRATE_CODES[kind], plan.cols, src.data_ptr(),
             None if m is None else m.data_ptr(), out.data_ptr(), w, k, steps, plan.blocks,
             plan.threads, plan.smem_bytes, _stream(src))
-    dk._check(lib, err, f"{name} launch")
+    cl.check(err, f"{name} launch")
     LAUNCHES["mm" if kind in _MM else "calibrate"] += 1
     return out
 
@@ -308,12 +297,12 @@ def isolate(src: torch.Tensor, kind: str, k: int, steps: int) -> torch.Tensor:
     if base.startswith("ramt"):
         base, amount = "ramt", int(base[4:]) % _W
     out = torch.empty((steps, _G, 128), dtype=torch.int32, device=src.device)
-    lib = _lib()
-    with torch.cuda.device(src.device), dk.LAUNCH_LOCK:
+    lib = cl.load()
+    with torch.cuda.device(src.device), cl.LAUNCH_LOCK:
         err = lib.sno_probe_isolate_launch(
             ISOLATE_CODES[base], plan.cols, int(kind.endswith("_iota")), amount, plan.shift,
             src.data_ptr(), out.data_ptr(), k, steps, plan.blocks, plan.threads,
             plan.smem_bytes, _stream(src))
-    dk._check(lib, err, f"{name} launch")
+    cl.check(err, f"{name} launch")
     LAUNCHES["isolate"] += 1
     return out

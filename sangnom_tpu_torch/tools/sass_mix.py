@@ -72,13 +72,13 @@ def arm_loops(sass: str, arm: str) -> list[list[str]]:
 
 def disassemble() -> str:
     """SASS of csrc/probes.cu, compiled as the library compiles it."""
-    from sangnom_tpu_torch.ops import deint_kernel as dk
+    from sangnom_tpu_torch.ops import cuda_library as cl
 
-    nvcc = Path(dk._nvcc())
-    cubin = dk._BUILD_DIR / "probes.sass_mix.cubin"
-    dk._BUILD_DIR.mkdir(exist_ok=True)
-    flags = [f for f in dk.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
-    subprocess.run([str(nvcc), *flags, "-cubin", str(dk._SRC_DIR / "probes.cu"),
+    nvcc = Path(cl.nvcc())
+    cubin = cl.build_dir() / "probes.sass_mix.cubin"
+    cl.build_dir().mkdir(exist_ok=True)
+    flags = [f for f in cl.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    subprocess.run([str(nvcc), *flags, "-cubin", str(cl.SRC_DIR / "probes.cu"),
                     "-o", str(cubin)], check=True, capture_output=True, text=True)
     try:
         return subprocess.run([str(nvcc.with_name("cuobjdump")), "-sass", str(cubin)],

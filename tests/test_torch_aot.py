@@ -25,7 +25,7 @@ torch = pytest.importorskip("torch")
 import sangnom_tpu_torch as T  # noqa: E402
 from sangnom_tpu_torch import aot  # noqa: E402
 from sangnom_tpu_torch.cli import main as tmain  # noqa: E402
-from sangnom_tpu_torch.ops import deint_kernel as dk  # noqa: E402
+from sangnom_tpu_torch.ops import cuda_library as cl  # noqa: E402
 
 CPU = ["--device", "cpu"]
 
@@ -275,9 +275,9 @@ def test_aot_library_wins_over_cache_dir(tmp_path, monkeypatch, _aot_off):
     hash loads from there with no build; --cache-dir's directory serves
     only when the --aot directory holds none; the hash, not file times,
     keys a build."""
-    for name in ("_BUILD_DIR", "_LIB", "_lib", "LIB_PATH", "BUILDS"):
-        monkeypatch.setattr(dk, name, getattr(dk, name))
-    monkeypatch.setattr(dk, "_lib", None)
+    for name in ("_build_dir", "_lib", "LIB_PATH", "BUILDS"):
+        monkeypatch.setattr(cl, name, getattr(cl, name))
+    monkeypatch.setattr(cl, "_lib", None)
     loaded, built = [], []
 
     class FakeCDLL:
@@ -293,25 +293,25 @@ def test_aot_library_wins_over_cache_dir(tmp_path, monkeypatch, _aot_off):
         built.append(lib)
         lib.parent.mkdir(parents=True, exist_ok=True)
         lib.write_bytes(b"lib")
-        dk.BUILDS += 1
+        cl.BUILDS += 1
         return 0.0
 
-    monkeypatch.setattr(dk.ctypes, "CDLL", FakeCDLL)
-    monkeypatch.setattr(dk, "compile_library", fake_compile)
+    monkeypatch.setattr(cl.ctypes, "CDLL", FakeCDLL)
+    monkeypatch.setattr(cl, "compile_library", fake_compile)
     adir, cache = tmp_path / "aot", tmp_path / "cache"
-    dk.set_build_dir(cache)
+    cl.set_build_dir(cache)
     aot.configure(adir)
-    dk._load()  # the --aot directory holds no library: build into the cache
+    cl.load()  # the --aot directory holds no library: build into the cache
     assert built == [cache.resolve() / "libsangnom_cuda.so"]
-    assert (cache / "libsangnom_cuda.so.key").read_text() == dk.source_hash()
-    assert dk.build() == 0.0 and dk.BUILDS == 1  # up to date by its hash
+    assert (cache / "libsangnom_cuda.so.key").read_text() == cl.source_hash()
+    assert cl.build() == 0.0 and cl.BUILDS == 1  # up to date by its hash
 
-    (adir / dk.library_name()).parent.mkdir(parents=True)
-    (adir / dk.library_name()).write_bytes(b"lib")
-    dk._lib = None
-    dk._load()
-    assert dk.LIB_PATH == adir / dk.library_name()
-    assert loaded[-1] == str(adir / dk.library_name()) and dk.BUILDS == 1
+    (adir / cl.library_name()).parent.mkdir(parents=True)
+    (adir / cl.library_name()).write_bytes(b"lib")
+    cl._lib = None
+    cl.load()
+    assert cl.LIB_PATH == adir / cl.library_name()
+    assert loaded[-1] == str(adir / cl.library_name()) and cl.BUILDS == 1
     aot.configure(None)
     assert aot.library_path() is None
 
@@ -335,8 +335,8 @@ def test_aot_load_runs_no_nvcc_on_card(tmp_path, rng, _aot_off):
     assert tmain(["prewarm", "--aot", str(adir), "--format", "YUV420P8",
                   "--size", "128x64", "--frames", "4", "--bob"]) == 0
     code = ("import sys; from sangnom_tpu_torch import cli; "
-            "from sangnom_tpu_torch.ops import deint_kernel as dk; "
-            "rc = cli.main(sys.argv[1:]); print('BUILDS', dk.BUILDS, dk.LIB_PATH); "
+            "from sangnom_tpu_torch.ops import cuda_library as cl; "
+            "rc = cli.main(sys.argv[1:]); print('BUILDS', cl.BUILDS, cl.LIB_PATH); "
             "sys.exit(rc)")
     outs = []
     for extra in ([], ["--aot", str(adir)]):
@@ -347,5 +347,5 @@ def test_aot_load_runs_no_nvcc_on_card(tmp_path, rng, _aot_off):
         assert r.returncode == 0, r.stderr
         outs.append((out.read_bytes(), r.stdout, r.stderr))
     assert outs[0][0] == outs[1][0]
-    assert f"BUILDS 0 {adir / dk.library_name()}" in outs[1][1], outs[1][1]
+    assert f"BUILDS 0 {adir / cl.library_name()}" in outs[1][1], outs[1][1]
     assert "aot: 1 dispatch(es) served from artifacts, 0 miss(es)" in outs[1][2]

@@ -28,7 +28,7 @@ from sangnom_tpu.io import write_y4m as j_write_y4m  # noqa: E402
 import sangnom_tpu_torch as T  # noqa: E402
 from sangnom_tpu_torch import cli as tcli  # noqa: E402
 from sangnom_tpu_torch.io import read_y4m  # noqa: E402
-from sangnom_tpu_torch.ops import deint_kernel as dk  # noqa: E402
+from sangnom_tpu_torch.ops import cuda_library as cl  # noqa: E402
 
 from conftest import make_planes  # noqa: E402
 
@@ -205,10 +205,10 @@ def test_cli_device_defaults_to_cuda(inputs, tmp_path, capsys, monkeypatch):
 def fresh_kernel_library(monkeypatch):
     """The kernel library's module state, restored after the test; nothing
     loaded."""
-    for name in ("_BUILD_DIR", "_LIB", "_lib"):
-        monkeypatch.setattr(dk, name, getattr(dk, name))
-    monkeypatch.setattr(dk, "_lib", None)
-    return dk
+    for name in ("_build_dir", "_lib"):
+        monkeypatch.setattr(cl, name, getattr(cl, name))
+    monkeypatch.setattr(cl, "_lib", None)
+    return cl
 
 
 def test_cli_cache_dir_sets_build_dir(inputs, tmp_path, capsys,
@@ -217,19 +217,18 @@ def test_cli_cache_dir_sets_build_dir(inputs, tmp_path, capsys,
     any load, without building on the CPU; once the library is loaded,
     another directory is refused (the same one is accepted)."""
     built = []
-    monkeypatch.setattr(dk, "_build", lambda verbose: built.append(verbose))
+    monkeypatch.setattr(cl, "build", lambda verbose=False: built.append(verbose))
     cache = tmp_path / "kcache"
     src = str(inputs / "yuv.y4m")
     assert tcli.main([src, str(tmp_path / "o.y4m"), "--cache-dir",
                       str(cache), *CPU]) == 0
-    assert dk._BUILD_DIR == cache.resolve()
-    assert dk._LIB == cache.resolve() / "libsangnom_cuda.so"
+    assert cl.build_dir() == cache.resolve()
     assert not built and not cache.exists()
 
-    dk._lib = object()  # as after a load
-    dk.set_build_dir(cache)
+    cl._lib = object()  # as after a load
+    cl.set_build_dir(cache)
     with pytest.raises(ValueError, match="already loaded"):
-        dk.set_build_dir(tmp_path / "other")
+        cl.set_build_dir(tmp_path / "other")
     assert tcli.main([src, str(tmp_path / "o2.y4m"), "--cache-dir",
                       str(tmp_path / "other"), *CPU]) == 2
     assert "already loaded" in capsys.readouterr().err
@@ -254,14 +253,14 @@ def test_load_builds_once_across_threads(fresh_kernel_library, monkeypatch):
             setattr(self, name, fn)
             return fn
 
-    monkeypatch.setattr(dk, "build", fake_build)
-    monkeypatch.setattr(dk.ctypes, "CDLL", FakeCDLL)
+    monkeypatch.setattr(cl, "build", fake_build)
+    monkeypatch.setattr(cl.ctypes, "CDLL", FakeCDLL)
     barrier = threading.Barrier(8)
     libs = []
 
     def worker():
         barrier.wait(timeout=10)
-        libs.append(dk._load())
+        libs.append(cl.load())
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)

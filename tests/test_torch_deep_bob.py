@@ -90,10 +90,11 @@ def test_field_kernel_launch_spans_name_their_build_and_shape():
         pytest.skip("needs a CUDA device")
     from sangnom_tpu_torch.core.formats import get_format
     from sangnom_tpu_torch.core.geometry import buffer_stride_elems, width_tiers
-    from sangnom_tpu_torch.ops import deint_kernel as dk
+    from sangnom_tpu_torch.ops import cuda_library as cl
+    from sangnom_tpu_torch.ops.launch_geometry import launch_shape
     from sangnom_tpu_torch.ops.primitives import KernelSpec
 
-    dk.build()
+    cl.build()
     name, n, h, w = "YUV422P10", 2, 64, 256
     planes = _planes(name, SEEDS[0], n=n, h=h, w=w, device="cuda")
     _same_as_reference(name, planes, True, aa=48, aac=0)
@@ -107,6 +108,6 @@ def test_field_kernel_launch_spans_name_their_build_and_shape():
     for pw in (w, w // 2):  # luma, then U+V's one launch
         S = width_tiers(pw, h // 2, stride, spec)[2]
         want.append({"elem": 2, "rows": h // 2, "cols": pw, "smoothed": S,
-                     "cols_per_thread": dk.launch_shape(S)[0]})
+                     "cols_per_thread": launch_shape(S)[0]})
     got = sorted(({k: r.counts[k] for k in want[0]} for r in launches), key=lambda c: -c["cols"])
     assert got == want

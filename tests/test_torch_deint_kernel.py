@@ -21,7 +21,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from sangnom_tpu_torch.core.formats import get_format  # noqa: E402
+from sangnom_tpu_torch.ops import cuda_library as cl  # noqa: E402
 from sangnom_tpu_torch.ops import deint_kernel as dk  # noqa: E402
+from sangnom_tpu_torch.ops.launch_geometry import launch_shape  # noqa: E402
 from sangnom_tpu_torch.ops.primitives import KernelSpec  # noqa: E402
 from sangnom_tpu_torch.parallel import shard_kernel as sk  # noqa: E402
 
@@ -128,14 +130,14 @@ def test_cpu_wrappers_do_not_launch():
 
 def test_launch_shape_covers_width():
     for S in (1, 5, 31, 61, 512, 513, 1023, 1024, 1920, 2048, 2049, 3840, 4096, 8192):
-        cols, threads = dk.launch_shape(S)
+        cols, threads = launch_shape(S)
         assert cols == (1 if S <= 512 else 4 if S <= 2048 else 8)
         # contiguous groups t*cols .. t*cols+cols-1 cover S; no idle warp
         assert cols * threads >= S and threads % 32 == 0
         assert (threads - 32) * cols < S
         assert threads <= (1024 if cols == 8 else 512)
     with pytest.raises(ValueError, match="too wide"):
-        dk.launch_shape(8193)
+        launch_shape(8193)
 
 
 LIMIT = 227 * 1024  # the H100's opt-in shared memory a block, 232448 bytes
@@ -164,7 +166,7 @@ def test_launch_plan_route_and_bytes(S, limit, elem):
             dk.launch_plan(S, S, elem, limit)
         return
     plan = dk.launch_plan(S, S, elem, limit)
-    cols, threads = dk.launch_shape(S)
+    cols, threads = launch_shape(S)
     assert (plan.cols, plan.threads) == (cols, threads)
     assert plan.route == route
     # pitches: 4 left pads, the right pads, 16-byte rows
@@ -229,7 +231,7 @@ def test_kernel_matches_plain_on_card(cuda, fmt_name, sse2, offset, tff, w):
     # 1023 and 5 unpadded: S not a multiple of 4, and a plane below the
     # 7-tap span; 3840 is past one block: K4 over 4 blocks of a cluster
     stride = w if w in UNPADDED else -(-w // 32) * 32
-    wide = dk._is_wide(w, bufH, stride, spec)
+    wide = dk.field_plan(n_fields, w, bufH, stride, spec, cl.card_figures(cuda)).k > 1
     assert wide == (w == 3840)
     before, full = dk.LAUNCHES, sk.LAUNCHES["full"]
     got = dk.deinterlace_field_batch_fused(src, off, _aaf(fmt), spec, stride,
@@ -285,7 +287,7 @@ def test_kernel_concurrent_launches_on_card(cuda):
                       dk.deinterlace_field_batch_plain(src, 1, 62, spec, stride)))
     from sangnom_tpu_torch.core.geometry import width_tiers
 
-    limit = dk._max_smem_bytes(dk._load(), cuda)
+    limit = cl.max_smem_bytes(cuda)
     assert len({dk.launch_plan(w, width_tiers(w, 17, stride, spec)[2], 1, limit).smem_bytes
                 for w, stride in ((s.shape[2], st) for s, st, _ in cases)}) == 2
 

@@ -1,8 +1,9 @@
 """A call's two plane passes on two CUDA streams (ops/sangnom.sangnom2_impl,
 deint_kernel.overlap_uv): where the luma walk leaves enough SMs idle,
 the batched U+V pass runs on a second stream of the calling thread beside
-it.  On the CPU: the decision, a pure function of the two passes' plans and
-the card's figures, and the dispatch's closures run in turn with the same
+it.  On the CPU: the decision, a pure function of the two passes' plans
+(``deint_kernel.field_plan``, the plans their launches run) and the card's
+figures, and the dispatch's closures run in turn with the same
 bits.  The ``cuda`` cases hold the two-stream call against the same call on
 one stream on the card.  This module imports neither JAX nor the test
 conftest:
@@ -20,15 +21,16 @@ torch = pytest.importorskip("torch")
 import sangnom_tpu_torch as T  # noqa: E402
 from sangnom_tpu_torch.core.formats import get_format  # noqa: E402
 from sangnom_tpu_torch.core.geometry import buffer_stride_elems  # noqa: E402
+from sangnom_tpu_torch.ops import cuda_library as cl  # noqa: E402
 from sangnom_tpu_torch.ops import deint_kernel as dk  # noqa: E402
 from sangnom_tpu_torch.ops import sangnom as ops_sangnom  # noqa: E402
 from sangnom_tpu_torch.ops.primitives import KernelSpec  # noqa: E402
 from sangnom_tpu_torch.parallel import shard_kernel as sk  # noqa: E402
 from sangnom_tpu_torch.utils import profiling as pr  # noqa: E402
 
-# The card's figures as the decision takes them: an H100 SXM's 132 SMs and
-# 232448 bytes of shared memory a block.
-CARD = dk.Card(132, 232448, 233472)
+# The card's figures as the decision takes them: an H100 SXM's 132 SMs,
+# 232448 bytes of shared memory a block and 233472 a SM.
+CARD = cl.Card(132, 232448, 233472)
 CUDA0 = torch.device("cuda", 0)
 
 # fmt, luma [N, H, W], U [N, H, W], dh, interlaced
@@ -87,22 +89,29 @@ def test_overlap_decision(name, kw, want):
 
 
 def test_overlap_rule_counts_free_sms():
-    """The rule on the maa pass's figures: K4's 96 luma blocks ask for more
-    than half a SM's shared memory (`shard_kernel.one_wave_smem`), so they
-    take 96 SMs; 132 - 96 = 36 free SMs, one K1 block of 174496 bytes a SM,
-    36 >= 48 / 2.  Off: a leader whose blocks could share a SM (K4's own 91232
-    bytes), 110 luma blocks (22 free SMs, under half of the 48), or more
-    blocks than SMs."""
-    smem = sk.one_wave_smem(96, 91232, CARD)
-    assert 2 * (smem + 1024) > CARD.smem_sm >= 2 * (91232 + 1024)
+    """The rule on the maa pass's two plans as `field_plan` makes them for
+    the launch: K4's 96 luma blocks ask for more than half a SM's shared
+    memory (115713 bytes, `shard_kernel.one_wave_smem` over the plan's
+    91232, which a pass of more blocks than SMs keeps), so they take 96
+    SMs; 132 - 96 = 36 free SMs, one K1 U+V block of 174496 bytes a SM,
+    36 >= 48 / 2.  Off: a leader whose blocks could share a SM (K4's own
+    91232 bytes), 110 luma blocks (22 free SMs, under half of the 48), or
+    more blocks than SMs."""
+    spec = KernelSpec.from_format(get_format("YUV420P8"))
+    stride = buffer_stride_elems(3840, 1)
+    luma = dk.field_plan(24, 3840, 1080, stride, spec, CARD)
+    uv = dk.field_plan(48, 1920, 540, stride, spec, CARD)
+    assert (luma.k, luma.blocks, luma.smem_bytes) == (4, 96, 115713)
+    assert (uv.k, uv.blocks, uv.smem_bytes) == (1, 48, 174496)
+    assert dk.field_plan(34, 3840, 1080, stride, spec, CARD).smem_bytes == 91232
+    assert 2 * (luma.smem_bytes + 1024) > CARD.smem_sm >= 2 * (91232 + 1024)
     assert sk.one_wave_smem(133, 91232, CARD) == 91232
-    luma = dk.PassShape(96, smem)
-    uv = dk.PassShape(48, 174496)
+    shared = luma._replace(plan=luma.plan._replace(smem_bytes=91232))
     assert dk.blocks_per_sm(uv, CARD) == 1
     assert dk.blocks_per_sm(luma, CARD) == 1
-    assert dk.blocks_per_sm(luma._replace(smem_bytes=91232), CARD) == 2
+    assert dk.blocks_per_sm(shared, CARD) == 2
     assert dk.overlap_rule(luma, uv, CARD)
-    assert not dk.overlap_rule(luma._replace(smem_bytes=91232), uv, CARD)
+    assert not dk.overlap_rule(shared, uv, CARD)
     assert not dk.overlap_rule(luma._replace(blocks=110), uv, CARD)
     assert not dk.overlap_rule(luma._replace(blocks=140), uv, CARD)
 
@@ -300,16 +309,16 @@ def test_two_streams_from_threads_on_card(cuda, one_stream):
 def test_overlap_decision_on_card(cuda):
     """With the card's own figures the maa pass and a bob window of 8
     frames engage and the bob cells' 60 frames do not; the blocks a SM the
-    rule counts for the maa luma pass's K4 plan, as planned and as padded,
-    are the card's own occupancy query's."""
-    card = dk.card_figures(cuda)
-    assert card.smem_block == dk._max_smem_bytes(dk._load(), cuda)
+    rule counts for the maa luma pass's K4 plan, padded (24 frames) and as
+    planned (34 frames, more blocks than SMs), are the card's own occupancy
+    query's."""
+    card = cl.card_figures(cuda)
+    assert card.smem_block == cl.max_smem_bytes(cuda)
     spec = KernelSpec.from_format(get_format("YUV420P8"))
-    fp = dk._card_plan(3840, 1080, buffer_stride_elems(3840, 1), spec, cuda)
-    blocks = 24 * fp.k
-    for smem in (fp.plan.smem_bytes, sk.one_wave_smem(blocks, fp.plan.smem_bytes, card)):
-        occ = sk.occupancy("full", spec, fp.plan._replace(smem_bytes=smem), fp.k, cuda)
-        assert occ["blocks_per_sm"] == dk.blocks_per_sm(dk.PassShape(blocks, smem), card)
+    for fields in (24, 34):
+        fp = dk.field_plan(fields, 3840, 1080, buffer_stride_elems(3840, 1), spec, card)
+        occ = sk.occupancy("full", spec, fp.plan, fp.k, cuda)
+        assert occ["blocks_per_sm"] == dk.blocks_per_sm(fp, card)
     for case, want in ((MAA, True), (BOB, False), (BOB10, False), (_bob(8), True)):
         fname, luma, chroma, dh, interlaced = case
         fmt = get_format(fname)
@@ -330,7 +339,7 @@ def test_one_wave_k4_takes_a_sm_each_on_card(cuda):
     fmt = get_format("GRAY8")
     spec = KernelSpec.from_format(fmt)
     aaf = aaf_as_pixel(scaled_aa_thresholds(48, 0, fmt)[0], fmt)
-    card = dk.card_figures(cuda)
+    card = cl.card_figures(cuda)
     for fields in (24, card.sms // 4 + 8):
         kept = torch.randint(0, 256, (fields, 16, 3840), dtype=torch.uint8, device=cuda)
         with pr.tracing():
@@ -338,10 +347,12 @@ def test_one_wave_k4_takes_a_sm_each_on_card(cuda):
         torch.cuda.synchronize()
         k4 = [r.counts for r in pr.drain()
               if r.name == pr.LAUNCH and r.counts.get("kernel") == "shard_full_kernel"]
-        plan = dk._card_plan(3840, 16, 3840, spec, cuda).plan
-        assert len(k4) == 1 and k4[0]["blocks"] == 4 * fields
+        fp = dk.field_plan(fields, 3840, 16, 3840, spec, card)
+        assert len(k4) == 1 and k4[0]["blocks"] == fp.blocks == 4 * fields
+        assert k4[0]["smem_bytes"] == fp.smem_bytes
         if 4 * fields <= card.sms:
-            assert 2 * (k4[0]["smem_bytes"] + 1024) > card.smem_sm
+            assert 2 * (fp.smem_bytes + 1024) > card.smem_sm
         else:
-            assert k4[0]["smem_bytes"] == plan.smem_bytes
+            assert fp.smem_bytes == sk.full_plan(4, 960, 16, 1, card.smem_block,
+                                                 dk.WIDE_FIELD_ROWS).smem_bytes
         assert torch.equal(got, dk.deinterlace_field_batch_plain(kept, 1, aaf, spec, 3840))

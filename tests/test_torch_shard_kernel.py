@@ -32,6 +32,8 @@ from sangnom_tpu_torch.core.geometry import (  # noqa: E402
     aaf_as_pixel,
     scaled_aa_thresholds,
 )
+from sangnom_tpu_torch.ops import cuda_library as cl  # noqa: E402
+from sangnom_tpu_torch.ops import launch_geometry as geo  # noqa: E402
 from sangnom_tpu_torch.ops.primitives import KernelSpec  # noqa: E402
 from sangnom_tpu_torch.ops.sangnom import weave_assemble  # noqa: E402
 from sangnom_tpu_torch.parallel import fused_smooth as fs  # noqa: E402
@@ -238,10 +240,10 @@ def test_full_plan_route_and_launches(n):
     plan = sk.full_plan(n, W_loc, bufH, 1, 227 * 1024, chunk_rows=5)
     R, H = sk.cluster_rows(n, W_loc, bufH - 1, 5)
     assert (plan.R, plan.H) == (R, H) == (4, 12 if n > 1 else 0)
-    assert plan.cluster == (n <= sk.MAX_CLUSTER)
-    assert plan.launches == (1 if n <= sk.MAX_CLUSTER else math.ceil((bufH - 1) / R))
+    assert plan.cluster == (n <= geo.MAX_CLUSTER)
+    assert plan.launches == (1 if n <= geo.MAX_CLUSTER else math.ceil((bufH - 1) / R))
     W_c = W_loc + min(n - 1, 2) * H
-    assert W_c == sk.block_width(n, W_loc, H)
+    assert W_c == geo.block_width(n, W_loc, H)
     assert (plan.cols, plan.threads) == sk.shard_shape(W_c)
     assert plan.pitch_b >= W_c + plan.cols + 8 and plan.pitch_b % 4 == 0
     assert plan.pitch_r >= W_c + plan.cols + 8 and plan.pitch_r % 16 == 0
@@ -269,9 +271,9 @@ def test_full_plan_falls_back_by_shared_memory():
 def test_smooth_plan(n):
     plan = sk.smooth_plan(n, 30, 13, 227 * 1024, chunk_rows=5)
     R, H = sk.cluster_rows(n, 30, 12, 5)
-    W_c = sk.block_width(n, 30, H)
+    W_c = geo.block_width(n, 30, H)
     assert (plan.R, plan.H, plan.cols) == (R, H, sk.shard_shape(W_c)[0])
-    assert plan.launches == (1 if n <= sk.MAX_CLUSTER else math.ceil(12 / R))
+    assert plan.launches == (1 if n <= geo.MAX_CLUSTER else math.ceil(12 / R))
     assert plan.smem_bytes == 2 * plan.pitch_b * 4 + (16 * H if plan.cluster else 0)
     with pytest.raises(ValueError, match="exceeds shared memory"):
         sk.smooth_plan(n, 30, 13, 64)
@@ -280,7 +282,7 @@ def test_smooth_plan(n):
 def test_unschedulable_cluster_raises():
     """The launchers' "no cluster fits" code raises; it never reroutes."""
     with pytest.raises(RuntimeError, match="a cluster of 4 blocks cannot be scheduled"):
-        sk.check_launch(None, -1, "sharded fused kernel launch", 4)
+        cl.check(cl.NO_CLUSTER, "sharded fused kernel launch", 4)
 
 
 @pytest.mark.parametrize("fmt_name,sse2", FORMATS, ids=str)
@@ -465,11 +467,20 @@ def test_chunked_route_on_card(cuda, fmt_name, sse2, geom):
 
 @pytest.mark.cuda
 def test_unschedulable_cluster_raises_on_card(cuda, monkeypatch):
-    """A cluster of 12 blocks (past the portable 8) is refused, and the call
-    raises instead of taking another route."""
+    """A cluster of 12 blocks (past the portable 8) is refused: a launch
+    handed that plan raises, and the call raises at its plan
+    (`shard_kernel.pass_plan` asks the card before any launch) instead of
+    taking another route."""
     fmt, spec, aaf, rng = _setup("GRAY8", False, 3)
     kept = _kept(rng, fmt, 2, 8, 12 * 9, 0, cuda)
     monkeypatch.setattr(sk, "MAX_CLUSTER", 32)
+    planned = sk.full_plan(12, 9, 8, 1, cl.max_smem_bytes(cuda))
+    assert planned.cluster
     with pytest.raises(RuntimeError, match="sharded fused kernel launch"):
+        sk.full_pass(kept, None, aaf, spec, 12, 12 * 9, planned)
+        torch.cuda.synchronize()
+    before = sk.LAUNCHES["full"]
+    with pytest.raises(RuntimeError, match="cluster"):
         fs.interpolate_fused_full(kept, aaf, spec, 12)
         torch.cuda.synchronize()
+    assert sk.LAUNCHES["full"] == before

@@ -411,9 +411,9 @@ def test_off_path_has_no_profiler_range_outside_the_span_layer():
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from sangnom_tpu_torch.ops import deint_kernel as dk
+    from sangnom_tpu_torch.ops import cuda_library as cl
 
-    dk.build()
+    cl.build()
 
 
 def _launches_against_kernels(fn):

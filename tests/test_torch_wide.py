@@ -3,14 +3,15 @@ smoothed columns for the field kernel, 8192 for the pool walk), against
 sangnom_tpu, bit for bit, float included.
 
 On the card a field past one block runs as the width-sharded kernel K4 runs
-a field (``deint_kernel.wide_plan``: k blocks of 4-column threads of a field
+a field (``deint_kernel.field_plan``: k blocks of 4-column threads of a field
 in a cluster, the plane edge-padded and the output cropped), the pool walk past one block
 splits a map's row over a cluster (``pool_kernel.walk_plan``), and a
 sharded route splits each shard that is too wide into k blocks
 (``shard_kernel.split_count``).  On the CPU the wrappers run their plain
-twins, which have no width limit; so the fixtures below send the CPU path
-through the wide routes' plain twins (K4's plain version and the split
-walk's, with the k, padding, halos and crop the card uses), and those runs
+twins, which have no width limit, and the field kernel's wrappers take the
+wide route's plain twin (K4's plain version with the k, padding and crop
+the card uses) where the pass's plan does; so the fixtures below send the
+CPU path through the wrappers and the split walk's plain twin, and those runs
 are held against the TPU package at ``opt=0`` (one case also at ``opt=1``,
 its Pallas kernels in interpret mode).  The ``cuda`` cases launch the
 kernels and hold each against its plain version on the card; they skip
@@ -28,7 +29,9 @@ import sangnom_tpu_torch as T  # noqa: E402
 from sangnom_tpu_torch.core.formats import get_format  # noqa: E402
 from sangnom_tpu_torch.core.geometry import (  # noqa: E402
     aaf_as_pixel, buffer_stride_elems, scaled_aa_thresholds, width_tiers)
+from sangnom_tpu_torch.ops import cuda_library as cl  # noqa: E402
 from sangnom_tpu_torch.ops import deint_kernel as dk  # noqa: E402
+from sangnom_tpu_torch.ops import launch_geometry as geo  # noqa: E402
 from sangnom_tpu_torch.ops import pool_carry as pc  # noqa: E402
 from sangnom_tpu_torch.ops import pool_kernel as pk  # noqa: E402
 from sangnom_tpu_torch.ops import reference as ref  # noqa: E402
@@ -84,29 +87,22 @@ def _pool(fname, S, P, seed):
 
 @pytest.fixture
 def wide_route(monkeypatch):
-    """The port's main path on the CPU through the wide route's plain twin
-    wherever a field is past one block, as the card routes it; records the
-    widths that took it."""
+    """The port's main path on the CPU through the field kernel's wrappers,
+    which route each pass by its `field_plan` as the card does: K4's plain
+    version wherever a field is past one block; records the widths that
+    took it."""
     from sangnom_tpu_torch.ops import sangnom as ops
+    from sangnom_tpu_torch.parallel import fused_smooth as fs
 
     used = []
+    real = fs.fused_full_plain
 
-    def interp(kept, aaf, spec, stride):
-        if dk._is_wide(kept.shape[2], kept.shape[1], stride, spec):
-            used.append(kept.shape[2])
-            return dk._wide(kept, None, aaf, spec, stride)
-        return ref.interpolate_field_batch(kept, aaf, spec, stride)
+    def spy(kept, aaf, spec, n_space, plane_width, *a):
+        used.append(plane_width)
+        return real(kept, aaf, spec, n_space, plane_width, *a)
 
-    def weave(kept, offset, aaf, spec, stride, interlaced_tff=None):
-        bufH = kept.shape[1] // (1 if interlaced_tff is None else 2)
-        if dk._is_wide(kept.shape[2], bufH, stride, spec):
-            used.append(kept.shape[2])
-            return dk._wide(kept, offset, aaf, spec, stride, interlaced_tff)
-        return dk.deinterlace_field_batch_plain(kept, offset, aaf, spec, stride,
-                                                interlaced_tff)
-
-    interp.fused_weave = weave
-    monkeypatch.setattr(ops, "_pick_backend", lambda opt, device: interp)
+    monkeypatch.setattr(fs, "fused_full_plain", spy)
+    monkeypatch.setattr(ops, "_pick_backend", lambda opt, device: dk.interpolate_field_batch)
     return used
 
 
@@ -248,13 +244,13 @@ def test_sharded_wide_matches_jax(monkeypatch, space, smooth, across):
 
     J = _jax()
     shards = []
-    real = fused_smooth._fused_full
+    real = fused_smooth.fused_full_plain
 
     def spy(kept, aaf, spec, n_space, *a):
         shards.append(n_space)
         return real(kept, aaf, spec, n_space, *a)
 
-    monkeypatch.setattr(fused_smooth, "_fused_full", spy)
+    monkeypatch.setattr(fused_smooth, "fused_full_plain", spy)
     planes = _planes("GRAY8", 16416, 8, 2, 31)
     want = J.sangnom2(J.Clip.from_numpy(planes, "GRAY8"), opt=0, order=1)
     clip = T.Clip.from_numpy(planes, "GRAY8", device="cpu")
@@ -287,10 +283,11 @@ SPLIT_CASES = [
 
 @pytest.mark.parametrize("fname,sse2,n,bufH,w,tff", SPLIT_CASES, ids=str)
 def test_wide_split_matches_jax(fname, sse2, n, bufH, w, tff):
-    """The wide route's plain twin (K4's plain version over the plan's k
-    shards of the padded plane, cropped) equals the TPU package's field
-    interpolation, woven at offsets 0, 1 and per field; with ``tff`` the
-    fields are split from an interlaced plane first, as the bob's are."""
+    """The wrappers on the CPU take the wide route's plain twin (K4's plain
+    version over the plan's k shards of the padded plane, cropped), which
+    equals the TPU package's field interpolation, woven at offsets 0, 1 and
+    per field; with ``tff`` the fields are split from an interlaced plane
+    first, as the bob's are."""
     J = _jax()
     from sangnom_tpu.ops import reference as jref
     from sangnom_tpu.ops.primitives import KernelSpec as JSpec
@@ -307,21 +304,22 @@ def test_wide_split_matches_jax(fname, sse2, n, bufH, w, tff):
         src = _plane(rng, (n // 2, 2 * bufH, w), fmt)
         rows = src.reshape(n // 2, bufH, 2, w)
         kept = (rows if tff else rows[:, :, ::-1]).transpose(0, 2, 1, 3).reshape(n, bufH, w)
-    plan = dk.wide_plan(w, bufH, stride, spec, dk.H100_SMEM)
-    assert plan.k > 1 and plan.plan.cluster == (plan.k <= sk.MAX_CLUSTER)
+    fp = dk.field_plan(n, w, bufH, stride, spec, cl.H100)
+    assert fp.k > 1 and fp.plan.cluster == (fp.k <= geo.MAX_CLUSTER)
     import jax.numpy as jnp
 
     jspec = JSpec.from_format(J.get_format(fname), sse2=sse2)
     jinterp = jref.interpolate_field_batch(jnp.asarray(kept), aaf, jspec, stride)
     if bufH >= 2:
-        got = dk._wide(torch.from_numpy(src), None, aaf, spec, stride, tff)
+        got = dk.interpolate_field_batch(torch.from_numpy(kept.copy()), aaf, spec, stride)
         np.testing.assert_array_equal(got.numpy(), np.asarray(jinterp))
     pf = np.arange(n, dtype=np.int32) % 2
     for off in (0, 1, pf):
         t_off = torch.from_numpy(off) if isinstance(off, np.ndarray) else off
         j_off = jnp.asarray(off) if isinstance(off, np.ndarray) else off
         want = j_weave(jnp.asarray(kept), jinterp, j_off)
-        got = dk._wide(torch.from_numpy(src), t_off, aaf, spec, stride, tff)
+        got = dk.deinterlace_field_batch_fused(torch.from_numpy(src), t_off, aaf, spec,
+                                               stride, tff)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=str(off))
 
 
@@ -342,7 +340,7 @@ def test_split_walk_matches_jax(fname, S, P):
     want = np.asarray(jref.smooth_scan(jnp.asarray(pool), jspec, init=jnp.asarray(pool[:, 0])))
     want = want.transpose(1, 0, 2)  # time-major [P-1, 9, S] -> [9, P-1, S]
     plan = pk.walk_plan(S, P - 1)
-    assert plan.k > 1 and plan.cluster == (plan.k <= sk.MAX_CLUSTER)
+    assert plan.k > 1 and plan.cluster == (plan.k <= geo.MAX_CLUSTER)
     got = torch.from_numpy(pool.copy())
     pk.smooth_split_plain_(got[:, 0], got[:, 1:P], got[:, P], spec, plan)
     np.testing.assert_array_equal(got[:, 1:P].numpy(), want)
@@ -361,7 +359,7 @@ def test_cluster_fields_counted(wide_route, w, fields):
 
     planes = _planes("GRAY8", w, 4, 24, 37)
     clip = T.Clip.from_numpy(planes, "GRAY8", device="cpu")
-    fp = dk.wide_plan(w, 4, buffer_stride_elems(w, 1), _spec("GRAY8"), dk.H100_SMEM)
+    fp = dk.field_plan(24, w, 4, buffer_stride_elems(w, 1), _spec("GRAY8"), cl.H100)
     if fields:
         assert (fp.k, fp.plan.cluster) == (4, True)
     else:
@@ -382,27 +380,34 @@ WIDTHS = (8192, 8193, 8224, 12288, 15360, 16384, 32768, 65280, 65536)
 
 @pytest.mark.parametrize("S", (1920, 2048, 2049, 2056, 3840, 4096, 7680) + WIDTHS)
 def test_wide_plan(S):
-    """GRAY8 fields of width S: up to 2048 smoothed columns K1's plan;
-    above, K4's 4-column build over k >= 2 blocks, a halo exchange every
-    ``WIDE_ROWS`` rows: the least k up to 8 whose blocks, halos included,
-    fit ``WIDE_BLOCK`` columns, else the least k whose blocks fit 2040;
-    each halo within the adjacent block, the cluster route up to 8 blocks."""
+    """`field_plan` for 24 GRAY8 fields of width S: up to 2048 smoothed
+    columns K1's plan, a block a field; above, K4's 4-column build over k >=
+    2 blocks a field, a halo exchange every ``WIDE_FIELD_ROWS`` rows: the
+    least k up to 8 whose blocks, halos included, fit ``WIDE_BLOCK``
+    columns, else the least k whose blocks fit 2040; each halo within the
+    adjacent block, the cluster route up to 8 blocks, and blocks that fit
+    one a SM asking for `shard_kernel.one_wave_smem`."""
     spec = _spec("GRAY8")
     stride = buffer_stride_elems(S, 1)
     for bufH in (1, 4, 540):
-        fp = dk.wide_plan(S, bufH, stride, spec, dk.H100_SMEM)
+        fp = dk.field_plan(24, S, bufH, stride, spec, cl.H100)
         smoothed = width_tiers(S, bufH, stride, spec)[2]
         if smoothed <= dk.FIELD_COLS:
-            assert (fp.k, fp.W_loc) == (1, smoothed)
-            assert fp.plan == dk.launch_plan(S, smoothed, 1, dk.H100_SMEM)
+            assert (fp.k, fp.W_loc, fp.blocks) == (1, smoothed, 24)
+            assert fp.plan == dk.launch_plan(S, smoothed, 1, cl.H100.smem_block)
             assert fp.plan.cols == 4
             continue
         assert fp.k > 1 and fp.width >= S and fp.width % fp.k == 0
+        assert fp.blocks == 24 * fp.k
         plan = fp.plan
-        assert plan.R == max(1, min(dk.WIDE_ROWS, bufH - 1))
+        planned = sk.full_plan(fp.k, fp.W_loc, bufH, 1, cl.H100.smem_block,
+                               dk.WIDE_FIELD_ROWS)
+        assert plan == planned._replace(
+            smem_bytes=sk.one_wave_smem(fp.blocks, planned.smem_bytes, cl.H100))
+        assert plan.R == max(1, min(dk.WIDE_FIELD_ROWS, bufH - 1))
         assert plan.H == 3 * plan.R <= fp.W_loc
         assert plan.cols == 4 and plan.threads <= 512
-        assert plan.cluster == (fp.k <= sk.MAX_CLUSTER)
+        assert plan.cluster == (fp.k <= geo.MAX_CLUSTER)
         if bufH == 1:  # the weave alone: one launch over no steps, either route
             assert plan.launches == 1
         else:
@@ -410,9 +415,9 @@ def test_wide_plan(S):
 
         def fits(j, cap):
             W = fp.width // j
-            return fp.width % j == 0 and sk.block_width(j, W, plan.H) <= cap
+            return fp.width % j == 0 and geo.block_width(j, W, plan.H) <= cap
 
-        narrow = [j for j in range(2, sk.MAX_CLUSTER + 1) if fits(j, dk.WIDE_BLOCK)]
+        narrow = [j for j in range(2, geo.MAX_CLUSTER + 1) if fits(j, dk.WIDE_BLOCK)]
         if narrow:
             assert fp.k == narrow[0]
         else:  # the least k within the 4-column build
@@ -431,18 +436,18 @@ def test_walk_plan(S):
     cover S, each within one block's columns with its halos, each halo
     within the adjacent shard, R <= D + 1 for every build."""
     plan = pk.walk_plan(S, 539)
-    if S <= dk.MAX_COLS:
+    if S <= geo.MAX_COLS:
         assert (plan.k, plan.cluster, plan.launches) == (1, False, 1)
-        assert (plan.cols, plan.threads) == dk.launch_shape(S)
+        assert (plan.cols, plan.threads) == geo.launch_shape(S)
         return
     k, W_loc, H = plan.k, plan.W_loc, plan.H
     assert k > 1 and (k - 1) * W_loc < S <= k * W_loc
     assert H == 3 * plan.R and plan.R == pk.WIDE_ROWS <= 3  # R <= D + 1, D >= 2
     last = S - (k - 1) * W_loc
     assert H <= last <= W_loc
-    assert W_loc + min(k - 1, 2) * H <= dk.MAX_COLS
-    assert (plan.cols, plan.threads) == dk.launch_shape(W_loc + min(k - 1, 2) * H)
-    assert plan.cluster == (k <= sk.MAX_CLUSTER)
+    assert W_loc + min(k - 1, 2) * H <= geo.MAX_COLS
+    assert (plan.cols, plan.threads) == geo.launch_shape(W_loc + min(k - 1, 2) * H)
+    assert plan.cluster == (k <= geo.MAX_CLUSTER)
     assert plan.launches == (1 if plan.cluster else -(-539 // plan.R))
     assert pk.walk_plan(S, 539, cluster=False).launches == -(-539 // plan.R)
 
@@ -506,7 +511,7 @@ def test_wide_field_on_card(cuda, case):
     n_fields = 2 * shape[0] if tff is not None else n
     off = (torch.arange(n_fields, dtype=torch.int32, device=cuda) % 2
            if offset == "pf" else offset)
-    fp = dk._card_plan(w, bufH, stride, spec, cuda)
+    fp = dk.field_plan(n_fields, w, bufH, stride, spec, cl.card_figures(cuda))
     before, full = dk.LAUNCHES, sk.LAUNCHES["full"]
     got = dk.deinterlace_field_batch_fused(kept, off, aaf, spec, stride, tff)
     torch.cuda.synchronize()
@@ -547,7 +552,7 @@ def test_wide_walk_on_card(cuda, fname, sse2, S, P):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bufH", [1, 9])
-def test_wide_chunk_route_on_card(cuda, monkeypatch, bufH):
+def test_wide_chunk_route_on_card(cuda, monkeypatch, request, bufH):
     """The wide route where the card cannot schedule the cluster: 3840
     columns on the chunk route (4 blocks, a launch a chunk of R rows; one
     launch for one kept row) against the plain path, woven at offsets 0, 1
@@ -555,10 +560,10 @@ def test_wide_chunk_route_on_card(cuda, monkeypatch, bufH):
     spec = _spec("GRAY8")
     fmt = get_format("GRAY8")
     aaf = aaf_as_pixel(scaled_aa_thresholds(48, 48, fmt)[0], fmt)
-    limit = dk._max_smem_bytes(dk._load(), cuda)
-    monkeypatch.setattr(dk, "_card_plan", lambda w, bufH, stride, spec, device: dk.wide_plan(
-        w, bufH, stride, spec, limit, cluster=False))
-    fp = dk._card_plan(3840, bufH, 3840, spec, cuda)
+    monkeypatch.setattr(cl, "cluster_fits", lambda device, key, clusters: False)
+    dk.field_plan.cache_clear()
+    request.addfinalizer(dk.field_plan.cache_clear)
+    fp = dk.field_plan(3, 3840, bufH, 3840, spec, cl.card_figures(cuda))
     assert (fp.k, fp.plan.cluster) == (4, False)
     kept = torch.from_numpy(_plane(np.random.default_rng(bufH), (3, bufH, 3840), fmt)).to(cuda)
     for off in (0, 1, torch.tensor([0, 1, 1], dtype=torch.int32, device=cuda)):
@@ -594,7 +599,7 @@ def test_sangnom2_wide_on_card(cuda, fname, w, h, kw):
         return
     clip = T.Clip.from_numpy(planes, fname, device=cuda, parity=np.array([True, False]))
     _equal(T.sangnom2(clip, **kw).planes, T.sangnom2(clip, opt=0, **kw).planes)
-    if w > dk.MAX_COLS:
+    if w > geo.MAX_COLS:
         _equal(T.sangnom2(clip, pool_compat=True, **kw).planes,
                T.sangnom2(clip, pool_compat=True, opt=0, **kw).planes, "pool_compat")
 
