@@ -324,19 +324,25 @@ def default_pool_arm(pc) -> str:
 
 def phase_pool_main_path(fmt, clip_hd, clip_sd, details):
     """The pool_compat path through the entry points, once per kernel arm
-    (K3, K6, K7), each with the launch counts set to 0 just before and read
-    just after, and held to their formula (one K3 or K6 launch a plane pass;
-    three for K7: prepare, the K6 walk, finalize); outputs and final pools
-    bit-equal to opt=0, chunked streams equal to the whole clip, the first 2
-    frames equal to the native oracle with a carried pool.  The module's
-    flags are restored after each arm.  Returns (launches per arm and
-    kernel, the bob's final pool)."""
+    (K3, K6, K7), each with the launch counts set to 0 and the CUDA graph
+    cache emptied just before and read just after, so each counted call is
+    the first of its signature and runs eagerly; held to their formula (one
+    K3 or K6 launch a plane pass; three for K7: prepare, the K6 walk,
+    finalize); outputs and final pools bit-equal to opt=0 (the same calls
+    as streams capture their graphs), chunked streams equal to the whole
+    clip, the first 2 frames equal to the native oracle with a carried pool.
+    Then the bob's replayed graph under the profiler: the pool kernels on
+    the card per name, each on the formula though no wrapper launched them.
+    The module's flags are restored after each arm.  Returns (launches per
+    arm and kernel, the bob's final pool)."""
     from sangnom_tpu_torch import Clip, bob, sangnom2
     from sangnom_tpu_torch.core.fields import double_weave, separate_fields
     from sangnom_tpu_torch.ops import pool_carry as pc
+    from sangnom_tpu_torch.ops import pool_graph as pg
     from sangnom_tpu_torch.ops import pool_kernel as pk
     from sangnom_tpu_torch.ops.sangnom import sangnom2_pool_stream as stream
     from sangnom_tpu_torch.oracle import sangnom2_clip_oracle
+    from sangnom_tpu_torch.utils import profiling as pr
 
     woven = double_weave(separate_fields(clip_hd))
     calls = {  # name -> (main-path call, the same as a stream: clip, kwargs)
@@ -358,6 +364,7 @@ def phase_pool_main_path(fmt, clip_hd, clip_sd, details):
     for arm, flags in POOL_ARMS.items():
         pc.POOL_SPLIT3, pc.POOL_FUSED = flags
         try:
+            pg.CACHE.clear()
             torch.cuda.synchronize()
             pk.reset_launches()
             outs = {name: call() for name, (call, _, _) in calls.items()}
@@ -402,6 +409,26 @@ def phase_pool_main_path(fmt, clip_hd, clip_sd, details):
     got = [tuple(p.shape) for p in outs["bob"].planes]
     if got != [(2 * n, h, w) for n, h, w in (p.shape for p in clip_hd.planes)]:
         raise AssertionError(f"bob shapes {got}")
+    # the bob's third call, a replay, under the profiler: the card runs
+    # each pool kernel once a plane pass
+    bob_call = calls["bob"][0]
+    pg.CACHE.clear()
+    bob_call(), bob_call()  # eager, then captured
+    pk.reset_launches()
+    with pr.tracing():
+        before = pr.counters().get("pool_graph_replays", 0)
+        ran = pool_kernels_run(bob_call)
+        replays = pr.counters().get("pool_graph_replays", 0) - before
+    pr.drain()
+    want = dict.fromkeys(POOL_KERNELS, 2 * n_hd * 3)
+    if replays != 1 or any(pk.LAUNCHES.values()) or ran != want:
+        raise AssertionError(f"bob replay: {replays} replays, wrapper launches "
+                             f"{pk.LAUNCHES}, pool kernels on the card {ran}, want {want}")
+    held = [g.nbytes for g in pg.CACHE.entries.values() if isinstance(g, pg._Graph)]
+    log(f"[7 pool graph] bob(pool_compat=True) replayed: pool kernels on the card {ran} "
+        f"(profiler), no wrapper launch; graphs held {held} bytes")
+    details["pool_graph_replay_kernels"] = ran
+    details["pool_graph_bytes"] = held
     details["pool_main_path_launches"] = launches
     return launches, ref["bob"][1]
 
@@ -1282,6 +1309,31 @@ def check_launches(what: str, got: dict, want: dict, at_least: bool = False) -> 
         raise AssertionError(f"{what}: launches {got}, formula {want}")
 
 
+POOL_KERNELS = ("pool_prepare_kernel", "pool_smooth_kernel", "pool_finalize_kernel")
+
+
+def pool_kernels_run(fn) -> dict:
+    """The pool kernels the profiler's trace shows on the card during
+    ``fn()``, a count by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "t.json"
+        prof.export_chrome_trace(str(path))
+        evs = json.loads(path.read_text())["traceEvents"]
+    seen: dict = {}
+    for e in evs:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            for k in POOL_KERNELS:
+                if k in e.get("name", ""):
+                    seen[k] = seen.get(k, 0) + 1
+    return seen
+
+
 def _launch_counts(dk, pk) -> dict:
     return {"deint": dk.LAUNCHES, **{k: v for k, v in pk.LAUNCHES.items() if v}}
 
@@ -1317,7 +1369,11 @@ def phase_cli_hosts(tmp, fmt, bob_planes, dh_planes, pool_planes, out_bob, out_d
     ``write_y4m`` of phase 4's output (or of the API's pool_compat call on
     phase 7's clip), and each run's kernel launches equal their formula (2
     K1 launches a filter call, luma and fused U+V; 3 K7 launches a plane
-    pass).  Then the AviSynth-model host serves the fields through
+    pass).  The pool's CUDA graphs are dropped before each run; in the
+    windowed pool run, whose windows carry the pool, the first window and
+    the first two carried ones of a size run eagerly or capture, and the
+    rest replay (counted with spans on, and launching no wrapper).  Then
+    the AviSynth-model host serves the fields through
     ``env.invoke("SangNom2", src, order=1, dh=True)`` to 4 threads in
     shuffled order, every frame equal to phase 4's dh output.  Times each
     run's wall and frames/s, and for the windowed bob the read+parse,
@@ -1329,7 +1385,9 @@ def phase_cli_hosts(tmp, fmt, bob_planes, dh_planes, pool_planes, out_bob, out_d
     from sangnom_tpu_torch.io import iter_y4m, write_y4m
     from sangnom_tpu_torch.ops import deint_kernel as dk
     from sangnom_tpu_torch.ops import pool_carry as pc
+    from sangnom_tpu_torch.ops import pool_graph as pg
     from sangnom_tpu_torch.ops import pool_kernel as pk
+    from sangnom_tpu_torch.utils import profiling as pr
 
     t_phase = time.perf_counter()
     n_in, n_fields, n_pool = bob_planes[0].shape[0], dh_planes[0].shape[0], pool_planes[0].shape[0]
@@ -1355,6 +1413,13 @@ def phase_cli_hosts(tmp, fmt, bob_planes, dh_planes, pool_planes, out_bob, out_d
     passes = n_pool * 3
     pool_formula = {"K3": {"smooth": passes}, "K6": {"split3": passes},
                     "K7": {"prepare": passes, "split3": passes, "finalize": passes}}[arm]
+    # windows after the first that carry the pool, of the full size; the
+    # first two of them run eagerly and capture, the rest replay
+    sizes = [min(POOL_WINDOW, n_pool - k) for k in range(0, n_pool, POOL_WINDOW)]
+    replayed = max(0, sum(s == POOL_WINDOW for s in sizes[1:]) - 2)
+    issued = 3 * (n_pool - replayed * POOL_WINDOW)  # plane passes the wrappers launch
+    pool_win_formula = {k: v and issued for k, v in pool_formula.items()}
+    pool_replays = {"pool": 0, "pool-window": replayed}
     bob_win = ["--bob", "--window", str(CLI_WINDOW)]
     windows_bob = -(-n_in // CLI_WINDOW)
     runs = [  # (name, input, flags, expected output, launches formula)
@@ -1373,7 +1438,7 @@ def phase_cli_hosts(tmp, fmt, bob_planes, dh_planes, pool_planes, out_bob, out_d
         ("pool", "pool", ["--pool-compat", "--order", "1"], "pool",
          {"deint": 0, **pool_formula}),
         ("pool-window", "pool", ["--pool-compat", "--order", "1", "--window",
-                                 str(POOL_WINDOW)], "pool", {"deint": 0, **pool_formula}),
+                                 str(POOL_WINDOW)], "pool", {"deint": 0, **pool_win_formula}),
         ("script", "bob", None, "bob", {"deint": 2 * -(-2 * n_in // CLI_WINDOW)}),
     ]
     recipe = tmp / "bob.avs"
@@ -1385,16 +1450,24 @@ def phase_cli_hosts(tmp, fmt, bob_planes, dh_planes, pool_planes, out_bob, out_d
         out = tmp / "out.y4m"
         argv = (["script", str(recipe), str(paths[src]), str(out)] if flags is None
                 else [str(paths[src]), str(out), *flags])
+        pg.CACHE.clear()
         torch.cuda.synchronize()
         dk.LAUNCHES = 0
         pk.reset_launches()
-        t = time.perf_counter()
-        rc = cli.main(argv + ["--device", DEVICE])
-        wall = time.perf_counter() - t
+        before = pr.counters().get("pool_graph_replays", 0)
+        with pr.tracing() if name in pool_replays else contextlib.nullcontext():
+            t = time.perf_counter()
+            rc = cli.main(argv + ["--device", DEVICE])
+            wall = time.perf_counter() - t
+        pr.drain()
         torch.cuda.synchronize()
         if rc != 0:
             raise AssertionError(f"CLI run {name} exited {rc}")
         launches = _launch_counts(dk, pk)
+        replays = pr.counters().get("pool_graph_replays", 0) - before
+        if replays != pool_replays.get(name, 0):
+            raise AssertionError(f"CLI run {name}: {replays} graph replays, want "
+                                 f"{pool_replays.get(name, 0)}")
         if _file_sha(out) != want[key]:
             raise AssertionError(f"CLI run {name}: output != write_y4m of the {key} output")
         out.unlink()
@@ -1403,7 +1476,7 @@ def phase_cli_hosts(tmp, fmt, bob_planes, dh_planes, pool_planes, out_bob, out_d
         log(f"[14 cli] {name} ({' '.join(argv[2:] if flags is not None else ['script', 'bob.avs'])}): "
             f"{wall * 1e3:.1f} ms wall, {frames_in[src] / wall:.2f} input frames/s, "
             f"{frames_out[key] / wall:.2f} output frames/s end to end; SHA-equal to the "
-            f"{key} output; launches {launches} = formula | {card}")
+            f"{key} output; launches {launches} = formula, {replays} graph replays | {card}")
 
     # the AviSynth-model host: 4 threads, shuffled, windows of CLI_WINDOW
     env = ScriptEnvironment(device=DEVICE)
@@ -1625,14 +1698,17 @@ def phase_pool_fast(fmt, clip_hd, clip_sd, card, details):
     8) and pool hd720, each bit-equal to the sequential K7 route, frames and
     final pool, in 3 x planes x ceil(N / K) launches (planes x chunks of
     each kernel); pool sd480 (720 in stride 736) stays on the loop.  The
-    batched prepare, walk and finalize against their plain twins at the
-    1080 luma pass of K = 16 frames, timed with their bounds; ms per output
-    frame of the fast path at K = 16 and 14 against the sequential route,
-    in turns, with the idle share.  The flags are restored after."""
+    CUDA graph cache is emptied before each counted call, so the call runs
+    eagerly and its wrappers' launches are its own.  The batched prepare,
+    walk and finalize against their plain twins at the 1080 luma pass of
+    K = 16 frames, timed with their bounds; ms per output frame of the fast
+    path at K = 16 and 14 against the sequential route, in turns, with the
+    idle share.  The flags are restored after."""
     from sangnom_tpu_torch import Clip, bob, sangnom2
     from sangnom_tpu_torch.core.fields import double_weave, separate_fields
     from sangnom_tpu_torch.core.geometry import aaf_as_pixel, scaled_aa_thresholds
     from sangnom_tpu_torch.ops import pool_carry as pc
+    from sangnom_tpu_torch.ops import pool_graph as pg
     from sangnom_tpu_torch.ops import pool_kernel as pk
     from sangnom_tpu_torch.ops.primitives import KernelSpec
     from sangnom_tpu_torch.ops.sangnom import sangnom2_pool_stream as stream
@@ -1660,6 +1736,7 @@ def phase_pool_fast(fmt, clip_hd, clip_sd, card, details):
         torch.cuda.synchronize()
         pk.reset_launches()
         for name, (c, kw, call) in cases.items():
+            pg.CACHE.clear()
             before = dict(pk.LAUNCHES)
             out = call()
             torch.cuda.synchronize()
@@ -2271,6 +2348,11 @@ def _counts(dk, pk, sk) -> dict:
 
 
 def _reset(dk, pk, sk, ws=None):
+    """Launch counts to 0, and the pool's CUDA graphs dropped, so the next
+    pool_compat call runs eagerly and its launches are counted."""
+    from sangnom_tpu_torch.ops import pool_graph as pg
+
+    pg.CACHE.clear()
     dk.LAUNCHES = 0
     pk.reset_launches()
     sk.reset_launches()

@@ -40,6 +40,11 @@ chunk and plane whatever the chunk's frame count).
 
 The split carry is ``(row0 [9, S], body [9, P-1, S], tail [9, S])``: pool
 row 0, rows 1..P-1 and row P in three tensors.
+
+A sequential call on the card's kernel route, from a fresh pool or a
+carried one, is replayed as one CUDA graph from its second call with the
+same signature on (``ops/pool_graph``): the same launches on the same data,
+issued by one graph launch instead of 144 for the 8-frame 1080i bob.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ from sangnom_tpu_torch.core.geometry import (
     buffer_stride_elems,
     scaled_aa_thresholds,
 )
-from sangnom_tpu_torch.ops import pool_kernel
+from sangnom_tpu_torch.ops import pool_graph, pool_kernel
 from sangnom_tpu_torch.ops.primitives import KernelSpec
 from sangnom_tpu_torch.ops.reference import (
     error_maps_list,
@@ -371,66 +376,78 @@ def sangnom2_pool_impl(
     path (`_sangnom2_pool_batched`); everything else takes frames in
     order.  A caller's pool0 always takes the sequential loop: the path
     recreates each frame's pool from zeros, which a pool0 made elsewhere
-    need not equal (the CLI's windowed stream carries one)."""
+    need not equal (the CLI's windowed stream carries one).
+
+    On CUDA planes the sequential kernel route replays the whole call as
+    one CUDA graph from its signature's second call on (`pool_graph`): the
+    returned planes are then the caller's own copies, and ``pool0`` is
+    updated in place as the eager call updates it."""
     device = planes[0].device
     spec = KernelSpec.from_format(fmt, sse2=(numerics == "sse2"))
     N, h0, w0 = planes[0].shape
     h_out0 = 2 * h0 if dh else h0
     want = (9, buffer_height(h_out0) + 1,
             buffer_stride_elems(w0, fmt.component_size))
-    if pool0 is None:
-        pool = init_pool(w0, h_out0, fmt, device)
-    else:
-        pool = pool0
-        if (tuple(pool.shape), pool.dtype, pool.device) != (want, spec.acc_dtype, device):
-            raise ValueError(
-                f"pool_compat: pool {tuple(pool.shape)} {pool.dtype} on "
-                f"{pool.device} does not fit the clip (needs {want} "
-                f"{spec.acc_dtype} on {device})")
+    if pool0 is not None and ((tuple(pool0.shape), pool0.dtype, pool0.device)
+                              != (want, spec.acc_dtype, device)):
+        raise ValueError(
+            f"pool_compat: pool {tuple(pool0.shape)} {pool0.dtype} on "
+            f"{pool0.device} does not fit the clip (needs {want} "
+            f"{spec.acc_dtype} on {device})")
     plane_pass, split = _plane_pass(opt, device)
-    fast = (POOL_FAST and opt != 0 and pool0 is None
-            and _frames_independent(w0, h0, fmt, dh, luma))
-    if fast:
-        plane_pass = interp_field_pool_batch
+    batched = (POOL_FAST and opt != 0 and pool0 is None
+               and _frames_independent(w0, h0, fmt, dh, luma))
     log_dispatch(
-        fmt=fmt.name, backend=plane_pass.__name__, acc_dtype=spec.acc_dtype,
-        order=order, aa=aa, aac=aac, dh=dh, luma=luma, chroma=chroma, opt=opt,
-        pool_compat=True, frames=N, height=h0, width=w0, device=device,
+        fmt=fmt.name,
+        backend=(interp_field_pool_batch if batched else plane_pass).__name__,
+        acc_dtype=spec.acc_dtype, order=order, aa=aa, aac=aac, dh=dh, luma=luma,
+        chroma=chroma, opt=opt, pool_compat=True, frames=N, height=h0, width=w0,
+        device=device,
     )
     aafs = scaled_aa_thresholds(aa, aac, fmt)
     process = [luma, chroma, chroma]
     offsets = [field_offset_py(order, bool(parity[n]) if order == 0 else True)
                for n in range(N)]
 
-    outs: list[torch.Tensor | None] = []
-    passes = []  # (plane index, threshold) of the planes through the pool
-    for i, p in enumerate(planes):
-        n, h, w = p.shape
-        if i >= 3:
-            # alpha: passthrough, line-doubled under dh (the reference never
-            # feeds it through the pool, src/SangNom2.cpp:347)
-            outs.append(torch.stack([p, p], dim=2).reshape(n, 2 * h, w) if dh else p)
-        elif not dh and not process[i]:
-            outs.append(p)  # skipped plane: the pool is untouched
-        else:
-            outs.append(p.new_empty((n, 2 * h if dh else h, w)))
-            passes.append((i, aaf_as_pixel(aafs[i], fmt)))
+    def call(planes, pool0):  # the caller's, or a graph's static copies
+        outs: list[torch.Tensor] = []
+        passes = []  # (plane index, threshold) of the planes through the pool
+        for i, p in enumerate(planes):
+            n, h, w = p.shape
+            if i >= 3:
+                # alpha: passthrough, line-doubled under dh (the reference
+                # never feeds it through the pool, src/SangNom2.cpp:347)
+                outs.append(torch.stack([p, p], dim=2).reshape(n, 2 * h, w) if dh else p)
+            elif not dh and not process[i]:
+                outs.append(p)  # skipped plane: the pool is untouched
+            else:
+                outs.append(p.new_empty((n, 2 * h if dh else h, w)))
+                passes.append((i, aaf_as_pixel(aafs[i], fmt)))
+        if batched:
+            P, S = want[1] - 1, want[2]
+            return tuple(outs), _sangnom2_pool_batched(planes, outs, passes, offsets,
+                                                       dh, spec, P, S)
+        pool = init_pool(w0, h_out0, fmt, device) if pool0 is None else pool0
+        carry = _pool_split(pool) if split else pool
+        for f in range(N):
+            off = offsets[f]
+            for i, aaf in passes:
+                src = planes[i][f]
+                kept = src if dh else src[off::2]
+                with span(POOL_PASS) as sp:
+                    if sp:
+                        sp.set(frame=f, plane=i)
+                    interp = plane_pass(kept, carry, aaf, spec)
+                _assemble_into(outs[i][f], kept, interp, off)
+        if split:
+            pool.copy_(_pool_join(carry))
+        return tuple(outs), pool
 
-    if fast:
-        P, S = want[1] - 1, want[2]
-        final = _sangnom2_pool_batched(planes, outs, passes, offsets, dh, spec, P, S)
-        return tuple(outs), final
-    carry = _pool_split(pool) if split else pool
-    for f in range(N):
-        off = offsets[f]
-        for i, aaf in passes:
-            src = planes[i][f]
-            kept = src if dh else src[off::2]
-            with span(POOL_PASS) as sp:
-                if sp:
-                    sp.set(frame=f, plane=i)
-                interp = plane_pass(kept, carry, aaf, spec)
-            _assemble_into(outs[i][f], kept, interp, off)
-    if split:
-        pool.copy_(_pool_join(carry))
-    return tuple(outs), pool
+    if not pool_graph.engages(device, opt, batched):
+        return call(planes, pool0)
+    key = pool_graph.call_key(
+        planes, torch.cuda.current_stream(device).cuda_stream, pool0 is None, fmt.name,
+        offsets, order, aa, aac, dh, luma, chroma, numerics, opt,
+        (POOL_FUSED, POOL_SPLIT3))
+    return pool_graph.CACHE.run(key, planes, pool0, call)
+

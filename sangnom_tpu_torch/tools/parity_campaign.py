@@ -261,7 +261,7 @@ def _run_oracle(c: _Case, planes, rng, fmt, n, kw, opt, device, stats) -> list[s
 
 def _run_compat(c: _Case, planes, rng, fmt, n, kw, opt, device, stats) -> list[str]:
     from sangnom_tpu_torch import Clip, sangnom2
-    from sangnom_tpu_torch.ops import pool_carry, pool_kernel
+    from sangnom_tpu_torch.ops import pool_carry, pool_graph, pool_kernel
     from sangnom_tpu_torch.oracle import sangnom2_clip_oracle
 
     clip = Clip.from_numpy(planes, fmt, device=device)
@@ -279,7 +279,9 @@ def _run_compat(c: _Case, planes, rng, fmt, n, kw, opt, device, stats) -> list[s
         return []
     # the frame-parallel route runs where frames are provably independent
     # of the carried pool, on the kernel route; its prepare launches (one a
-    # chunk and plane, against one a frame and plane in order) show it ran
+    # chunk and plane, against one a frame and plane in order) show it ran.
+    # The pool's CUDA graphs are dropped first, so a sequential call runs
+    # eagerly and its launches are counted (a replay launches no wrapper)
     indep = pool_carry._frames_independent(planes[0].shape[2], planes[0].shape[1],
                                            fmt, kw["dh"], True)
     on_card = torch.device(device).type == "cuda"
@@ -291,6 +293,7 @@ def _run_compat(c: _Case, planes, rng, fmt, n, kw, opt, device, stats) -> list[s
         before = pool_kernel.LAUNCHES["prepare"]
         saved = pool_carry.POOL_FAST
         pool_carry.POOL_FAST = True
+        pool_graph.CACHE.clear()
         try:
             fast = sangnom2(clip, opt=opt, **kw)
         finally:
