@@ -2365,6 +2365,9 @@ def _reset(dk, pk, sk, ws=None):
 # rule (WIDE_BLOCK, WIDE_FIELD_ROWS), and the 15360 bob's luma pass
 WIDE_SWEEP_3840 = [(k, r) for k in (2, 3, 4) for r in (2, 4, 8)] + [(4, 16), (8, 4), (8, 8)]
 WIDE_SWEEP_BOB = [(2, 4), (4, 4), (8, 2), (8, 4), (8, 8), (8, 16)]
+# maa's turned pass: 24 luma fields of 1920 kept rows at its stride, 2176
+# columns, over the k that divide it
+WIDE_SWEEP_TURNED = [(k, r) for k in (2, 4, 8) for r in (4, 8)]
 
 
 def wide_k_sweep(name: str, fields, spec, pairs, card: str) -> dict:
@@ -2515,6 +2518,12 @@ def phase_wide(card: str, bob_ms: float, details) -> dict:
     res["maa luma k sweep"] = wide_k_sweep("maa luma pass", maa, KernelSpec.from_format(
         get_format("GRAY8")), WIDE_SWEEP_3840, card)
     del maa
+    turned = torch.randint(0, 256, (24, 1920, 2176), generator=g, device=DEVICE,
+                           dtype=torch.int32).to(torch.uint8)
+    res["maa turned luma k sweep"] = wide_k_sweep("maa turned luma pass", turned,
+                                                  KernelSpec.from_format(get_format("GRAY8")),
+                                                  WIDE_SWEEP_TURNED, card)
+    del turned
 
     # the K4 pass of the dh case alone, against its plain twin (not counted)
     kept, spec, stride, fmt = k4_pass

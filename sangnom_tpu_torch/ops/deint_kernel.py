@@ -19,7 +19,9 @@ where the card cannot schedule the cluster, one launch a chunk of rows), the
 output cropped back.  Its launches count in ``shard_kernel.LAUNCHES["full"]``,
 not in ``LAUNCHES``, and its fields on the card's cluster route in the
 ``cluster_fields`` counter; on a CPU tensor the wide route runs K4's plain
-version with the same k, padding and crop (and counts nothing).
+version with the same k, padding and crop (and counts no cluster field).
+On either, the ``wide_row_steps`` counter adds the pass's fields times its
+serial row steps (kept rows less one).
 
 The kernel is built and loaded with the rest of the library
 (``ops.cuda_library``).  ``LAUNCHES`` counts kernel launches, so a run can
@@ -28,7 +30,9 @@ show that it went through the kernel.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -199,15 +203,29 @@ def blocks_per_sm(fp: FieldPlan, card: cl.Card) -> int:
     return card.smem_sm // (fp.smem_bytes + cl.SMEM_RESERVED)
 
 
+def side_plan(fp: FieldPlan, card: cl.Card) -> FieldPlan:
+    """``fp`` as it runs beside a leading pass (`overlap_rule`), whose
+    blocks each ask for more than half a SM's shared memory: a K1 pass asks
+    for at least half a SM's less the reserve, so no SM holds a block of
+    each, while two of its own still fit on one.  Its blocks then take
+    only the SMs the leader leaves free: a K1 block of the turned maa's
+    U+V pass (98.6 KB) fits beside a K4 block (115.7 KB) as planned, and
+    K4's clusters stepped slower beside them.  K4 (``k`` > 1) as planned."""
+    floor = card.smem_sm // 2 - cl.SMEM_RESERVED
+    if fp.k > 1 or fp.smem_bytes >= floor:
+        return fp
+    return fp._replace(plan=fp.plan._replace(smem_bytes=floor))
+
+
 def overlap_rule(lead: FieldPlan, other: FieldPlan, card: cl.Card) -> bool:
     """Whether ``other`` runs beside ``lead``: where no SM can take two of
     the leader's blocks, the SMs it leaves free are the card's less its
-    blocks, and ``other`` goes beside it where those SMs hold at least
-    ``OVERLAP_SHARE`` of its blocks."""
+    blocks, and ``other`` goes beside it, on its `side_plan`, where those
+    SMs hold at least ``OVERLAP_SHARE`` of its blocks."""
     if blocks_per_sm(lead, card) > 1:
         return False
     free = max(card.sms - lead.blocks, 0)
-    return free * blocks_per_sm(other, card) >= OVERLAP_SHARE * other.blocks
+    return free * blocks_per_sm(side_plan(other, card), card) >= OVERLAP_SHARE * other.blocks
 
 
 def overlap_uv(shapes, devices, *, dh: bool, interlaced: bool, stride: int,
@@ -240,24 +258,33 @@ def overlap_uv(shapes, devices, *, dh: bool, interlaced: bool, stride: int,
     return overlap_rule(*plans, card)
 
 
-def _wide(kept: torch.Tensor, fp: FieldPlan, offset, aaf, spec: KernelSpec,
-          interlaced_tff: bool | None = None) -> torch.Tensor:
-    """The wide route on ``fp`` (k > 1): ``kept`` [N, bufH, w] fields (an
-    interlaced plane with ``interlaced_tff``, split first) -> the woven
-    plane (``offset`` 0, 1 or per field) or, with ``offset`` None, the
-    interpolated rows; K4 over the plan's k shards of the edge-padded
-    plane, cropped to w.  On a tensor off the card, K4's plain version
-    (``parallel.fused_smooth``) with the same k, padding and crop."""
+def _wide_input(kept: torch.Tensor, fp: FieldPlan,
+                interlaced_tff: bool | None = None) -> torch.Tensor:
+    """K4's input on ``fp`` (k > 1): ``kept`` [N, bufH, w] fields (an
+    interlaced plane with ``interlaced_tff``, split first; a strided view
+    of a plane's rows is copied once) edge-padded to the plan's width,
+    contiguous."""
     from sangnom_tpu_torch.parallel import fused_smooth as fs
 
     if interlaced_tff is not None:
         kept = split_plane(kept, interlaced_tff)
     N, bufH, w = kept.shape
-    width = fp.width
-    if width > w:  # edge replication: taps past w read the edge pixel
-        pad = fs.signed(kept)[..., -1:].expand(N, bufH, width - w)
-        kept = torch.cat([fs.signed(kept), pad], dim=2).view(kept.dtype)
-    kept = kept.contiguous()
+    if fp.width > w:  # edge replication: taps past w read the edge pixel
+        pad = fs.signed(kept)[..., -1:].expand(N, bufH, fp.width - w)
+        return torch.cat([fs.signed(kept), pad], dim=2).view(kept.dtype)
+    return kept.contiguous()
+
+
+def _wide(kept: torch.Tensor, fp: FieldPlan, w: int, offset, aaf,
+          spec: KernelSpec) -> torch.Tensor:
+    """The wide route on ``fp`` (k > 1): ``kept`` its `_wide_input`, [N,
+    bufH, fp.width] -> the woven plane (``offset`` 0, 1 or per field) or,
+    with ``offset`` None, the interpolated rows; K4 over the plan's k
+    shards, cropped to ``w``.  On a tensor off the card, K4's plain version
+    (``parallel.fused_smooth``) with the same k, padding and crop."""
+    from sangnom_tpu_torch.parallel import fused_smooth as fs
+
+    N, bufH, width = kept.shape
     offs = None if offset is None else fs.check_offsets(offset, kept)
     if kept.device.type == "cuda":
         out = sk.full_pass(kept, offs, aaf, spec, fp.k, w, fp.plan)
@@ -265,13 +292,32 @@ def _wide(kept: torch.Tensor, fp: FieldPlan, offset, aaf, spec: KernelSpec,
             count("cluster_fields", N)
     else:
         out = fs.fused_full_plain(kept, aaf, spec, fp.k, w, WIDE_FIELD_ROWS, offs)
+    count("wide_row_steps", N * (bufH - 1))
     return out if width == w else out[..., :w].contiguous()
 
 
 def _plan(kept: torch.Tensor, fields: int, bufH: int, w: int, stride: int,
           spec: KernelSpec) -> FieldPlan:
     card = cl.card_figures(kept.device) if kept.device.type == "cuda" else cl.H100
-    return field_plan(fields, w, bufH, stride, spec, card)
+    fp = field_plan(fields, w, bufH, stride, spec, card)
+    return side_plan(fp, card) if getattr(_SIDE, "on", False) else fp
+
+
+# Whether this thread's passes run beside a leading pass (`beside`).
+_SIDE = threading.local()
+
+
+@contextlib.contextmanager
+def beside():
+    """Within: this thread's field passes run beside a leading pass on
+    another stream (``ops.sangnom._beside``), each launch on its
+    `side_plan`."""
+    was = getattr(_SIDE, "on", False)
+    _SIDE.on = True
+    try:
+        yield
+    finally:
+        _SIDE.on = was
 
 
 def _launch(src: torch.Tensor, out: torch.Tensor, fp: FieldPlan, spec: KernelSpec,
@@ -336,7 +382,7 @@ def deinterlace_field_batch_plain(
 
 def deinterlace_field_batch_fused(
     kept: torch.Tensor, offset: Offset, aaf, spec: KernelSpec, stride: int,
-    interlaced_tff: bool | None = None,
+    interlaced_tff: bool | None = None, on_ready=None,
 ) -> torch.Tensor:
     """[N, bufH, w] kept fields -> the complete deinterlaced plane
     [N, 2*bufH, w]: kept and interpolated rows interleaved per ``offset``
@@ -346,6 +392,11 @@ def deinterlace_field_batch_fused(
     ``interlaced_tff`` not None: ``kept`` is an INTERLACED [N/2, 2*bufH, w]
     plane and output frame 2j+b is built from field b of input frame j
     (True: b=0 is the top field); the kernel reads the fields in place.
+
+    ``kept`` may be a strided view of a plane's rows: the wide route copies
+    it once with its edge pad (`_wide_input`), K1 once as it is.
+    ``on_ready``: called once that input is issued, before the launch
+    (``ops.sangnom._beside`` starts the call's second stream there).
     """
     _check_input(kept, stride)
     if interlaced_tff is None:
@@ -357,10 +408,13 @@ def deinterlace_field_batch_fused(
             raise ValueError(f"deint kernel: interlaced height {H} is odd")
         n_fields, bufH = 2 * n_in, H // 2
         interlaced = 1 if interlaced_tff else 2
-    if not n_fields * bufH * w:
-        fp = None
-    elif (fp := _plan(kept, n_fields, bufH, w, stride, spec)).k > 1:
-        return _wide(kept, fp, offset, aaf, spec, interlaced_tff)
+    fp = _plan(kept, n_fields, bufH, w, stride, spec) if n_fields * bufH * w else None
+    wide = fp is not None and fp.k > 1
+    kept = _wide_input(kept, fp, interlaced_tff) if wide else kept.contiguous()
+    if on_ready is not None:
+        on_ready()
+    if wide:
+        return _wide(kept, fp, w, offset, aaf, spec)
     if kept.device.type == "cpu":
         return deinterlace_field_batch_plain(kept, offset, aaf, spec, stride,
                                              interlaced_tff)
@@ -382,7 +436,7 @@ def interpolate_field_batch(
     if not (N and bufH >= 2 and w):
         fp = None
     elif (fp := _plan(kept, N, bufH, w, stride, spec)).k > 1:
-        return _wide(kept, fp, None, aaf, spec)
+        return _wide(_wide_input(kept, fp), fp, w, None, aaf, spec)
     if kept.device.type == "cpu":
         return reference.interpolate_field_batch(kept, aaf, spec, stride)
     out = torch.empty((N, max(bufH - 1, 0), w), dtype=kept.dtype,

@@ -78,8 +78,9 @@ def deinterlace_plane_batch(
     [N/2, h, w] plane whose fields are the dh sources (the bob pipeline);
     the CUDA kernel reads the fields in place, other paths split here.
 
-    ``on_kept``: called once the kept rows are issued, before anything
-    else of the pass.
+    ``on_kept``: called once the pass's kernel input is issued (the kept
+    rows; on the field kernel's wide route their copy with its edge pad,
+    which that weave makes and calls it after), before the kernel.
     """
     if interlaced_tff is not None:
         if not dh:
@@ -92,13 +93,11 @@ def deinterlace_plane_batch(
     if dh:
         kept = src  # dh: the whole source is the kept field
     elif isinstance(offsets, int):
-        kept = src[:, offsets::2].contiguous()
+        kept = src[:, offsets::2]  # a view, copied once by the pass below
     else:
         kept = where_storage(
             (offsets == 0)[:, None, None], src[:, 0::2], src[:, 1::2]
         )
-    if on_kept is not None:
-        on_kept()
 
     # The CUDA backend emits the complete woven plane (kept rows,
     # interpolated rows and the boundary duplicate) from the kernel.
@@ -107,7 +106,10 @@ def deinterlace_plane_batch(
     shards = getattr(fused_weave, "sharded", 0)
     if weave_ok and plane_width is None and not shards:
         return fused_weave(kept, offsets, aaf, spec, stride,
-                           interlaced_tff=interlaced_tff)
+                           interlaced_tff=interlaced_tff, on_ready=on_kept)
+    kept = kept.contiguous()
+    if on_kept is not None:
+        on_kept()
     if interlaced_tff is not None:
         from sangnom_tpu_torch.core.fields import split_plane
 
@@ -325,23 +327,29 @@ def _beside(device: torch.device, first: Callable, second: Callable) -> None:
     stream then waits for the second, so every output is complete for the
     caller's later work and nothing synchronizes the device.
 
-    The second stream starts once the luma pass's kept rows are issued
-    (``on_kept``), which is after the caller's state at entry: so the luma
-    kernel is ready before the U+V copies are, takes its SMs first, one
-    block a SM, and the U+V kernel fills the SMs left free.  Started at
-    entry instead, the U+V copies and kernel ran beside K4's launch on the
-    maa pass, and K4's walk took 6.6 ms in most calls against 3.95 alone
-    (H100).
+    The second stream starts once the luma kernel's input is issued
+    (``on_kept``: on the wide route the kept rows' one copy with the edge
+    pad), which is after the caller's state at entry: so the luma kernel
+    is ready before the U+V copies are and takes its SMs first, one block
+    a SM.  The U+V pass runs on its ``deint_kernel.side_plan``, whose
+    blocks cannot share a SM with a luma block, so it fills only the SMs
+    left free.  Started at entry instead, the U+V copies and kernel ran
+    beside K4's launch on the maa pass, and K4's walk took 6.6 ms in most
+    calls against 3.95 alone (H100).  On maa's turned pass, with the U+V
+    blocks as planned (98.6 KB) beside K4's (115.7 KB), the calls' rate
+    swung 2276-2810 frames/s from run to run (H100).
 
     The U+V output, allocated on the second stream, is marked in use on
     the caller's, so the allocator does not hand its memory to the second
     stream's next pass before the caller's work on it is done.  What the
     second pass only reads (the planes, the offsets) is freed after the
     caller's wait, so later work never overwrites it early."""
+    from sangnom_tpu_torch.ops import deint_kernel
+
     caller = torch.cuda.current_stream(device)
     side = _side_stream(device)
     first(lambda: side.wait_event(caller.record_event()))
-    with torch.cuda.stream(side):
+    with torch.cuda.stream(side), deint_kernel.beside():
         res = second()
     res.record_stream(caller)
     caller.wait_stream(side)

@@ -258,7 +258,11 @@ def _full_scratch(plan: Plan, blocks: int, spec: KernelSpec, kept: torch.Tensor)
 def _launch_full(lib, plan: Plan, spec: KernelSpec, kept, out, weave_args, scratch, gin,
                  gout, n_space: int, w_glob: int, lo: int, hi: int, aaf, name: str) -> None:
     """One K4 launch over steps lo..hi-1 (the caller holds the device and
-    LAUNCH_LOCK)."""
+    LAUNCH_LOCK).  Its launch span counts, beside the grid, the serial row
+    steps it walks (``steps``), the kept rows (``rows``), a shard's columns
+    (``cols``), the widest block's with its halos (``block_cols``), the rows
+    between halo exchanges (``exchange_rows``), the memory route
+    (``mem_route``) and the sample size (``elem``)."""
     with span(LAUNCH) as sp:
         N, bufH, S = kept.shape
         weave, static_offset, offs = weave_args
@@ -272,10 +276,14 @@ def _launch_full(lib, plan: Plan, spec: KernelSpec, kept, out, weave_args, scrat
         cl.check(err, f"{name} launch", n_space)
         LAUNCHES["full"] += 1
         if sp:
+            W_loc = S // n_space
             sp.set(kernel="shard_full_kernel", blocks=N * n_space, threads=plan.threads,
                    route="cluster" if plan.cluster else "chunk", k=n_space,
                    smem_bytes=plan.smem_bytes,
-                   bytes=(kept.numel() + out.numel()) * kept.element_size())
+                   bytes=(kept.numel() + out.numel()) * kept.element_size(),
+                   steps=hi - lo, rows=bufH, cols=W_loc,
+                   block_cols=block_width(n_space, W_loc, plan.H), exchange_rows=plan.R,
+                   mem_route=plan.route, elem=kept.element_size())
 
 
 def full_pass(kept: torch.Tensor, offsets, aaf, spec: KernelSpec, n_space: int,

@@ -303,10 +303,17 @@ def test_kernel_concurrent_launches_on_card(cuda):
 
 @pytest.mark.cuda
 def test_kernel_refuses_bad_input_on_card(cuda):
+    """A wrong dtype is refused; the kernel's launch refuses a strided
+    input (`interpolate_field_batch` hands it the rows as given), while the
+    fused weave takes a strided view of a plane's rows and copies it once,
+    with the bits of its contiguous copy."""
     spec = KernelSpec.from_format(get_format("GRAY8"))
     src = torch.zeros((2, 8, 32), dtype=torch.uint16, device=cuda)
     with pytest.raises(ValueError, match="dtype"):
         dk.deinterlace_field_batch_fused(src, 0, 62, spec, 32)
-    src = torch.zeros((2, 32, 8), dtype=torch.uint8, device=cuda).transpose(1, 2)
+    src = torch.randint(0, 256, (2, 32, 8), dtype=torch.int32,
+                        device=cuda).to(torch.uint8).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
-        dk.deinterlace_field_batch_fused(src, 0, 62, spec, 32)
+        dk.interpolate_field_batch(src, 62, spec, 32)
+    assert torch.equal(dk.deinterlace_field_batch_fused(src, 0, 62, spec, 32),
+                       dk.deinterlace_field_batch_fused(src.contiguous(), 0, 62, spec, 32))
